@@ -1,0 +1,247 @@
+"""The live tracking step: frames -> blobs -> tracked drone poses.
+
+Counterpart of ``low_cost_mocap_tpu/models/pipeline.py``:
+
+    frames -> blobs -> undistort -> epipolar match -> DLT triangulate ->
+    world transform -> rigid-body fit -> Kalman bank -> one packed row
+
+Detection runs the ``detect_blobs`` kernel and the bank the
+``kalman_bank`` kernel for CUDA tensors (their plain PyTorch versions for
+CPU tensors).  The frame-independent geometry takes an explicit leading
+batch axis, so per-frame tracking (``track_from_blobs``, B = 1) and batched
+serving (``scan_track_from_blobs``) run the same code and the same bank
+kernel.
+
+Not ported yet (they raise ``NotImplementedError``): preprocessing
+(blur + sharpen), sparse ingest, the matcher's per-camera observations
+(``with_obs``) and rigid-body templates.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from low_cost_mocap_tpu_torch.ops import camera as cam_ops
+from low_cost_mocap_tpu_torch.ops import (correspond, detect, detect_cuda,
+                                          kalman, kalman_cuda, rigid, world)
+
+
+class FrameOutputs(NamedTuple):
+    """Everything the engine emits per frame, fixed-shape (an optional
+    leading batch axis on every leaf)."""
+
+    blob_px: torch.Tensor        # (C, K, 2) detected centroids (undistorted)
+    blob_valid: torch.Tensor     # (C, K)
+    object_points: torch.Tensor  # (C*K, 3) world-frame triangulated points
+    point_errors: torch.Tensor   # (C*K,) reprojection errors
+    point_valid: torch.Tensor    # (C*K,)
+    objects: rigid.LocatedObjects      # raw rigid-body fits
+    tracked: kalman.TrackedObjects     # Kalman/low-pass output
+
+
+def pack_outputs(out: FrameOutputs) -> torch.Tensor:
+    """Flatten FrameOutputs into one float32 vector per frame — (L,), or
+    (B, L) for batched outputs — so a frame's readback is one transfer.
+    The layout is the JAX package's; decode with ``unpack_outputs``."""
+    lead = out.tracked.valid.shape[:-1]
+    leaves = [out.blob_px, out.blob_valid, out.object_points,
+              out.point_errors, out.point_valid, *out.objects, *out.tracked]
+    return torch.cat([t.to(torch.float32).reshape(*lead, -1)
+                      for t in leaves], dim=-1)
+
+
+def _sizes(C: int, K: int, O: int) -> list:
+    N = C * K
+    return [C * K * 2, C * K, N * 3, N, N, N * 3, N, N, N, N,
+            O * 3, O * 3, O, O]
+
+
+def unpack_outputs_batch(rows: np.ndarray, num_cameras: int, max_blobs: int,
+                         num_objects: int) -> list:
+    """Decode a (B, L) batch of packed rows into per-frame FrameOutputs of
+    numpy arrays (views into the batch)."""
+    C, K, O = num_cameras, max_blobs, num_objects
+    N = C * K
+    rows = np.asarray(rows)
+    B = rows.shape[0]
+    (blob_px, blob_valid, obj_pts, errs, pvalid, lpos, lhead, lerr, lidx,
+     lvalid, tpos, tvel, thead, tvalid) = np.split(
+        rows, np.cumsum(_sizes(C, K, O))[:-1], axis=1)
+    blob_px = blob_px.reshape(B, C, K, 2)
+    blob_valid = blob_valid.reshape(B, C, K) > 0.5
+    obj_pts = obj_pts.reshape(B, N, 3)
+    pvalid = pvalid > 0.5
+    lpos = lpos.reshape(B, N, 3)
+    lidx = lidx.astype(np.int32)
+    lvalid = lvalid > 0.5
+    tpos = tpos.reshape(B, O, 3)
+    tvel = tvel.reshape(B, O, 3)
+    tvalid = tvalid > 0.5
+    return [FrameOutputs(
+        blob_px=blob_px[i], blob_valid=blob_valid[i],
+        object_points=obj_pts[i], point_errors=errs[i],
+        point_valid=pvalid[i],
+        objects=rigid.LocatedObjects(pos=lpos[i], heading=lhead[i],
+                                     error=lerr[i], index=lidx[i],
+                                     valid=lvalid[i]),
+        tracked=kalman.TrackedObjects(pos=tpos[i], vel=tvel[i],
+                                      heading=thead[i], valid=tvalid[i]),
+    ) for i in range(B)]
+
+
+def unpack_outputs(arr: np.ndarray, num_cameras: int, max_blobs: int,
+                   num_objects: int) -> FrameOutputs:
+    """Inverse of ``pack_outputs`` on one host row."""
+    return unpack_outputs_batch(np.asarray(arr)[None], num_cameras,
+                                max_blobs, num_objects)[0]
+
+
+def _not_ported(body_template=None, body_sets=None, with_obs=False) -> None:
+    if body_template is not None or body_sets:
+        raise NotImplementedError(
+            "rigid-body templates are not ported to PyTorch yet")
+    if with_obs:
+        raise NotImplementedError(
+            "with_obs (matcher observations) is not ported to PyTorch yet")
+
+
+def _locate_frame(blobs, blob_valid, Ps, K, dist, to_world_matrix, Fs, *,
+                  gate_px, max_candidates, marker_dist1, marker_dist2,
+                  marker_tol, marker_side_min):
+    """Frame-independent geometry over a (B, C, K, ...) batch: undistort ->
+    epipolar match -> DLT -> world transform -> rigid-body triple fit.
+    Returns (blobs_u, match dict, world points, LocatedObjects)."""
+    blobs_u = cam_ops.undistort_points(blobs, K[:, None], dist[:, None])
+    blobs_u = torch.where(blob_valid[..., None], blobs_u, 0.0)
+    match = correspond.match_points(blobs_u, blob_valid, Ps, gate_px=gate_px,
+                                    max_candidates=max_candidates, Fs=Fs)
+    pts = world.to_world(match["object_points"], to_world_matrix)
+    pts = torch.where(match["valid"][..., None], pts, 0.0)
+    # heading/side axes (0, 2): the horizontal plane of the world frame
+    located = rigid.locate_objects(pts, match["errors"], match["valid"],
+                                   dist1=marker_dist1, dist2=marker_dist2,
+                                   tol=marker_tol, side_min=marker_side_min,
+                                   ax_h1=0, ax_h2=2)
+    return blobs_u, match, pts, located
+
+
+def _bank(state, located, dts, report, kalman_impl):
+    """The Kalman bank over a (B, ...) batch of located objects.
+
+    ``kalman_impl``: "auto" — the ``kalman_bank`` kernel for CUDA tensors,
+    the plain chain for CPU tensors; "cuda" — the kernel (CUDA tensors
+    only); "torch" — the plain chain."""
+    args = (state, located.pos, located.heading, located.index,
+            located.valid, dts)
+    if kalman_impl == "torch":
+        return kalman.update_scan(*args, report=report)
+    if kalman_impl == "cuda" and dts.device.type != "cuda":
+        raise ValueError("kalman_impl='cuda' needs CUDA tensors")
+    if kalman_impl not in ("auto", "cuda"):
+        raise ValueError(f"kalman_impl must be auto/cuda/torch: "
+                         f"{kalman_impl!r}")
+    return kalman_cuda.kalman_scan(*args, report=report)
+
+
+def _batch_outputs(blobs_u, blob_valid, match, pts, located, tracked):
+    return FrameOutputs(
+        blob_px=blobs_u, blob_valid=blob_valid, object_points=pts,
+        point_errors=match["errors"], point_valid=match["valid"],
+        objects=located, tracked=tracked)
+
+
+def scan_track_from_blobs(state, blobs_b, blob_valid_b, dts, Ps, K, dist,
+                          to_world_matrix, Fs, *, gate_px: float,
+                          max_candidates: int, marker_dist1: float,
+                          marker_dist2: float, marker_tol: float,
+                          marker_side_min: float, body_template=None,
+                          body_sets=None, with_obs: bool = False,
+                          kalman_report: str = "pre",
+                          kalman_impl: str = "auto"):
+    """Batched serving: B consecutive frames' geometry as batched ops, then
+    the bank over the batch in one kernel launch.
+
+    blobs_b: (B, C, K, 2); blob_valid_b: (B, C, K); dts: (B,).
+    Returns (state after B frames, packed (B, L) rows).
+    """
+    _not_ported(body_template, body_sets, with_obs)
+    geo = _locate_frame(
+        blobs_b, blob_valid_b, Ps, K, dist, to_world_matrix, Fs,
+        gate_px=gate_px, max_candidates=max_candidates,
+        marker_dist1=marker_dist1, marker_dist2=marker_dist2,
+        marker_tol=marker_tol, marker_side_min=marker_side_min)
+    dts = torch.as_tensor(dts, dtype=torch.float32, device=blobs_b.device)
+    state, tracked = _bank(state, geo[3], dts, kalman_report, kalman_impl)
+    return state, pack_outputs(_batch_outputs(geo[0], blob_valid_b, *geo[1:],
+                                              tracked))
+
+
+def track_from_blobs(state, blobs, blob_valid, dt, Ps, K, dist,
+                     to_world_matrix, Fs=None, *, gate_px: float,
+                     max_candidates: int, marker_dist1: float,
+                     marker_dist2: float, marker_tol: float,
+                     marker_side_min: float, body_template=None,
+                     body_sets=None, with_obs: bool = False,
+                     kalman_report: str = "pre",
+                     kalman_impl: str = "auto"):
+    """Post-detection tail of one frame: (C, K, 2) blobs -> (new_state,
+    FrameOutputs).  The batched code at B = 1."""
+    _not_ported(body_template, body_sets, with_obs)
+    if Fs is None:
+        Fs = correspond._pairwise_fundamentals(Ps)
+    geo = _locate_frame(
+        blobs[None], blob_valid[None], Ps, K, dist, to_world_matrix, Fs,
+        gate_px=gate_px, max_candidates=max_candidates,
+        marker_dist1=marker_dist1, marker_dist2=marker_dist2,
+        marker_tol=marker_tol, marker_side_min=marker_side_min)
+    dts = torch.as_tensor(dt, dtype=torch.float32,
+                          device=blobs.device).reshape(1)
+    state, tracked = _bank(state, geo[3], dts, kalman_report, kalman_impl)
+    out = _batch_outputs(geo[0], blob_valid[None], *geo[1:], tracked)
+    return state, FrameOutputs(
+        out.blob_px[0], out.blob_valid[0], out.object_points[0],
+        out.point_errors[0], out.point_valid[0],
+        rigid.LocatedObjects(*(t[0] for t in out.objects)),
+        kalman.TrackedObjects(*(t[0] for t in out.tracked)))
+
+
+def frame_step(state, frames, dt, Ps, K, dist, to_world_matrix, Fs=None, *,
+               threshold: float, max_blobs: int, cc_iters: int,
+               gate_px: float, max_candidates: int,
+               marker_dist1: float, marker_dist2: float, marker_tol: float,
+               marker_side_min: float, do_preprocess: bool,
+               packed_input: bool = False, sparse_input: bool = False,
+               body_template=None, body_sets=None,
+               with_obs: bool = False, kalman_report: str = "pre",
+               kalman_impl: str = "auto"):
+    """One frame: detection, then ``track_from_blobs``.
+
+    ``packed_input=True`` takes (C, H, W//8) uint8 bit-packed binary frames
+    (``ops.detect.pack_frames``); otherwise (C, H, W) uint8 or float frames
+    thresholded on the device.  Returns (new_state, FrameOutputs).
+    """
+    if do_preprocess:
+        raise NotImplementedError(
+            "frame preprocessing (blur + sharpen) is not ported yet")
+    if sparse_input:
+        raise NotImplementedError("sparse ingest is not ported yet")
+    if packed_input:
+        frames = detect.unpack_bits(frames)
+        eff_threshold = 0.5
+    else:
+        if not frames.is_floating_point():
+            frames = frames.to(torch.float32) * (1.0 / 255.0)
+        eff_threshold = threshold
+    blobs, blob_valid, _ = detect_cuda.find_blobs(
+        frames, eff_threshold, max_blobs, cc_iters=cc_iters)
+    return track_from_blobs(
+        state, blobs, blob_valid, dt, Ps, K, dist, to_world_matrix, Fs,
+        gate_px=gate_px, max_candidates=max_candidates,
+        marker_dist1=marker_dist1, marker_dist2=marker_dist2,
+        marker_tol=marker_tol, marker_side_min=marker_side_min,
+        body_template=body_template, body_sets=body_sets,
+        with_obs=with_obs, kalman_report=kalman_report,
+        kalman_impl=kalman_impl)

@@ -1,0 +1,290 @@
+"""Cross-view correspondence: epipolar gating + hypothesis scoring.
+
+Counterpart of ``low_cost_mocap_tpu/ops/correspond.py`` in its exact mode
+(the mode the JAX package runs for up to five cameras).  Per root point and
+later camera the ``max_candidates`` nearest gated candidates plus a
+"missing" option are enumerated; every (root, hypothesis) triangulates in
+one batched DLT, and the minimum selection score wins per root.  A camera-0
+root whose winner duplicates a better camera-0 winner re-selects its best
+qualifying non-duplicate hypothesis, then a ghost dedupe pass drops points
+that a better point already explains.
+
+Every function here takes an explicit leading batch axis of frames
+(``(B, C, K, ...)``), so batched serving and the per-frame step (B = 1) run
+the same code.
+
+Ties: ``jax.lax.top_k`` returns the lowest index first among equal values,
+and most gated distances are +inf, so ties are the common case.
+``torch.topk`` promises no order among ties, so candidates come from a
+stable ascending sort instead.  ``torch.argmin``/``argmax`` return the first
+extremum, as JAX's do.
+"""
+
+from __future__ import annotations
+
+import functools
+import itertools
+
+import numpy as np
+import torch
+
+from low_cost_mocap_tpu_torch.ops import epipolar as epi
+from low_cost_mocap_tpu_torch.ops import triangulate as tri
+
+_INF = float("inf")
+
+
+def _pairwise_fundamentals(Ps):
+    """F[a, b]: lines in image b for points in image a.  (C, C, 3, 3)."""
+    C = Ps.shape[0]
+    Pa = Ps[:, None].expand(C, C, 3, 4)
+    Pb = Ps[None, :].expand(C, C, 3, 4)
+    return epi.fundamental_from_projections(Pa, Pb)
+
+
+def _epipolar_distances(pts, valid, gate_px, Fs):
+    """d[z, a, k, b, j] = distance of point (b, j) to the epiline of point
+    (a, k) in frame z.  Returns (d, gated), both (B, C, K, C, K)."""
+    C = pts.shape[1]
+    ph = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)   # (B,C,K,3)
+    lines = torch.einsum("abij,zakj->zakbi", Fs, ph)               # (B,C,K,C,3)
+    n = torch.sqrt(lines[..., 0] ** 2 + lines[..., 1] ** 2)
+    lines = lines / torch.clamp_min(n[..., None], 1e-12)
+    d = torch.abs(
+        torch.einsum("zakbi,zbji->zakbj", lines[..., :2], pts)
+        + lines[..., 2:3])                                         # (B,C,K,C,K)
+    # F[a, a] is built from duplicated projection rows, so the same-camera
+    # block is masked explicitly
+    same_cam = torch.eye(C, dtype=torch.bool, device=pts.device)[:, None, :, None]
+    gated = ((d < gate_px) & ~same_cam
+             & valid[:, None, None, :, :] & valid[:, :, :, None, None])
+    return d, gated
+
+
+def _compute_roots(d, gated, valid):
+    """(B, C, K) bool: which points seed tracks.  Camera 0's valid points
+    always do; a later camera's point does unless it is the closest gated
+    candidate of some earlier root."""
+    C, K = valid.shape[1:]
+    slots = torch.arange(K, device=valid.device)
+    root = [valid[:, 0]] + [None] * (C - 1)
+    for b in range(1, C):
+        claimed = torch.zeros_like(valid[:, 0])
+        for a in range(b):
+            g = gated[:, a, :, b, :]                                # (B, K, K)
+            da = torch.where(g, d[:, a, :, b, :], _INF)
+            jstar = torch.argmin(da, dim=-1)                        # (B, K)
+            has = g.any(dim=-1) & root[a]
+            claim_a = ((jstar[..., None] == slots) & has[..., None]).any(dim=-2)
+            claimed = claimed | claim_a
+        root[b] = valid[:, b] & ~claimed
+    return torch.stack(root, dim=1)
+
+
+@functools.lru_cache(maxsize=32)
+def _combo_table(num_later: int, n_opt: int, h_max: int) -> np.ndarray:
+    """(h_max, num_later) table of candidate choices, padded.
+    Choice values: 0..n_opt-2 = candidate rank, n_opt-1 = missing."""
+    combos = list(itertools.product(range(n_opt), repeat=num_later))
+    out = np.full((h_max, max(num_later, 1)), n_opt - 1, dtype=np.int32)
+    for i, c in enumerate(combos):
+        out[i, : len(c)] = c
+    return out
+
+
+@functools.lru_cache(maxsize=32)
+def _hypothesis_tables(C: int, n_opt: int):
+    """Ragged hypothesis tables of the all-roots one-hot matcher: hypotheses
+    of every root camera flattened into one axis of length
+    H = sum_rc n_opt^(C-1-rc), in ``itertools.product`` order per root
+    camera.  Returns (onehot (H, C, C, R) f32, use_tab (H, C) bool,
+    self_tab (H, C) bool, rc_onehot (C, H) f32, rc_of_h (H,) int32)."""
+    R = n_opt - 1
+    counts = [n_opt ** (C - 1 - rc) for rc in range(C)]
+    H_tot = sum(counts)
+    onehot = np.zeros((H_tot, C, C, R), np.float32)
+    use_tab = np.zeros((H_tot, C), bool)
+    self_tab = np.zeros((H_tot, C), bool)
+    rc_of_h = np.zeros((H_tot,), np.int32)
+    h0 = 0
+    for rc in range(C):
+        later = list(range(rc + 1, C))
+        n_h = counts[rc]
+        combos = _combo_table(len(later), n_opt, n_h)
+        sl = slice(h0, h0 + n_h)
+        rc_of_h[sl] = rc
+        self_tab[sl, rc] = True
+        for li, b in enumerate(later):
+            choice = combos[:, li]
+            miss = choice == n_opt - 1
+            use_tab[sl, b] = ~miss
+            rank = np.minimum(choice, R - 1)
+            onehot[h0 + np.arange(n_h), rc, b, rank] = \
+                (~miss).astype(np.float32)
+        h0 += n_h
+    rc_onehot = np.zeros((C, H_tot), np.float32)
+    rc_onehot[rc_of_h, np.arange(H_tot)] = 1.0
+    return onehot, use_tab, self_tab, rc_onehot, rc_of_h
+
+
+def _take(x, idx):
+    """x (B, K, H, ...) at idx (B, K) along axis 2 -> (B, K, ...)."""
+    shape = idx.shape + (1,) + x.shape[3:]
+    g = idx.reshape(idx.shape + (1,) * (x.dim() - 2)).expand(shape)
+    return torch.gather(x, 2, g)[:, :, 0]
+
+
+def match_points(pts, valid, Ps, gate_px: float = 5.0,
+                 max_candidates: int = 2, dedupe_eps: float = 0.02,
+                 mode: str = "auto", Fs=None):
+    """Full-frame correspondence + triangulation, exact mode.
+
+    pts: (C, K, 2) or (B, C, K, 2) undistorted blob centroids; valid: the
+    matching (C, K) or (B, C, K); Ps: (C, 3, 4).  Returns a dict with
+    ``object_points`` (..., C*K, 3), ``errors`` (..., C*K) and ``valid``
+    (..., C*K): one output slot per potential root.  ``mode`` "auto" and
+    "exact" run the exact matcher; "assoc" and "beam" are not ported yet.
+    """
+    if mode not in ("auto", "exact"):
+        raise NotImplementedError(
+            f"match_points mode {mode!r} is not ported yet (exact only)")
+    squeeze = pts.dim() == 3
+    if squeeze:
+        pts, valid = pts[None], valid[None]
+    Bz, C, K, _ = pts.shape
+    if C > 5 and mode == "auto":
+        raise NotImplementedError(
+            "more than 5 cameras needs assoc mode, which is not ported yet")
+    if Fs is None:
+        Fs = _pairwise_fundamentals(Ps)
+    dev, f32 = pts.device, pts.dtype
+    n_opt = max_candidates + 1
+    tau2 = gate_px * gate_px       # miss penalty: the epipolar gate
+
+    d, gated = _epipolar_distances(pts, valid, gate_px, Fs)
+    root_mask = _compute_roots(d, gated, valid)
+
+    # the max_candidates nearest gated candidates per (root, later camera);
+    # a stable sort keeps the lowest index first among ties, as top_k does
+    d_masked = torch.where(gated, d, _INF)                      # (B,C,K,C,K)
+    d_sorted, order = torch.sort(d_masked, dim=-1, stable=True)
+    cand_idx = order[..., :max_candidates]                      # (B,C,K,C,R)
+    cand_valid = torch.isfinite(d_sorted[..., :max_candidates])
+
+    onehot_np, use_np, self_np, rc_oh_np, rc_of_h = _hypothesis_tables(C, n_opt)
+    onehot = torch.from_numpy(onehot_np).to(dev)                # (H, C, C, R)
+    self_tab = torch.from_numpy(self_np).to(dev)                # (H, C)
+    msk_tab = torch.from_numpy(self_np | use_np).to(dev)        # (H, C)
+    rc_onehot = torch.from_numpy(rc_oh_np).to(dev)              # (C, H)
+    H = onehot_np.shape[0]
+
+    # candidate observations: obs_cand[z, a, k, b, r] = pts[z, b, cand_idx]
+    zi = torch.arange(Bz, device=dev)[:, None, None, None, None]
+    bi = torch.arange(C, device=dev)[None, None, None, :, None]
+    obs_cand = pts[zi, bi, cand_idx]                            # (B,C,K,C,R,2)
+
+    # hypothesis selections by one-hot contraction (exact: one nonzero term)
+    obs = torch.einsum("habr,zakbrx->zkhbx", onehot, obs_cand)
+    cv_miss = torch.einsum("habr,zakbr->zkhb", onehot,
+                           (~cand_valid).to(f32))
+    self_pts = torch.einsum("ah,zakx->zkhx", rc_onehot, pts)    # (B, K, H, 2)
+    sel = torch.where(self_tab[None, None, :, :, None],
+                      self_pts[:, :, :, None, :], obs)          # (B,K,H,C,2)
+    msk = msk_tab[None, None].expand(Bz, K, H, C)
+    ok = cv_miss.sum(dim=-1) < 0.5                              # (B, K, H)
+
+    X, _ = tri.triangulate_points(sel.reshape(-1, C, 2), Ps,
+                                  msk.reshape(-1, C))
+    err = tri.reprojection_errors(sel.reshape(-1, C, 2), X, Ps,
+                                  msk.reshape(-1, C))
+    X = X.reshape(Bz, K, H, 3)
+    err = torch.where(ok, err.reshape(Bz, K, H), _INF)
+
+    # selection score with the per-root-camera miss penalty
+    n_vis = msk.sum(dim=-1).to(f32)                             # (B, K, H)
+    n_later = torch.from_numpy(
+        (C - 1 - rc_of_h).astype(np.float32)).to(dev)[None, None]
+    n_miss = torch.clamp_min(n_later - (n_vis - 1.0), 0.0)
+    score = (err * n_vis + n_miss * tau2) / torch.clamp_min(
+        n_vis + n_miss, 1.0)
+    score = torch.where(ok, score, _INF)
+
+    # per-root-camera winner over each root camera's contiguous slice
+    out_pts, out_err = [], []
+    h0 = 0
+    for rc in range(C):
+        n_h = n_opt ** (C - 1 - rc)
+        best = torch.argmin(score[:, :, h0:h0 + n_h], dim=-1)  # (B, K)
+        out_pts.append(_take(X[:, :, h0:h0 + n_h], best))
+        out_err.append(_take(err[:, :, h0:h0 + n_h], best))
+        h0 += n_h
+    object_points = torch.cat(out_pts, dim=1)                   # (B, C*K, 3)
+    errors = torch.cat(out_err, dim=1)
+    ok = torch.isfinite(errors) & root_mask.reshape(Bz, C * K)
+    errors = torch.where(ok, errors, _INF)
+
+    if dedupe_eps > 0:
+        # camera-0 re-selection (see the JAX package's inline notes): a
+        # camera-0 root killed by a better camera-0 winner falls back to its
+        # best hypothesis that is >= 3-view, below the gate and not near any
+        # better winner.  The gate on use0 is the raw a_err, as in the JAX
+        # package (correspond.py:373).
+        N = C * K
+        i_idx = torch.arange(N, device=dev)
+        eps2 = dedupe_eps ** 2
+        btr = (((errors[:, None, :] < errors[:, :, None])
+                | ((errors[:, None, :] == errors[:, :, None])
+                   & (i_idx[None, :] < i_idx[:, None])))
+               & ok[:, None, :])                                # (B, N, N)
+        dW = ((object_points[:, :, None] - object_points[:, None]) ** 2
+              ).sum(dim=-1)
+        clash = (dW < eps2) & btr
+        cam0 = i_idx < K
+        killed0 = ok & cam0 & (clash & cam0[None, :]).any(dim=-1)  # (B, N)
+        H0 = n_opt ** (C - 1)
+        near0 = (((X[:, :, :H0, None, :]
+                   - object_points[:, None, None]) ** 2).sum(dim=-1)
+                 < eps2)                                        # (B,K,H0,N)
+        bad0 = (near0 & btr[:, :K, None, :]).any(dim=-1)        # (B, K, H0)
+        qual0 = (torch.isfinite(err[:, :, :H0]) & (n_vis[:, :, :H0] >= 3.0)
+                 & (err[:, :, :H0] < gate_px * gate_px) & ~bad0)
+        s2 = torch.where(qual0, score[:, :, :H0], _INF)
+        best2 = torch.argmin(s2, dim=-1)                        # (B, K)
+        a_pts = _take(X[:, :, :H0], best2)
+        a_err = _take(err[:, :, :H0], best2)
+        use0 = killed0[:, :K] & torch.isfinite(a_err)
+        use_alt = torch.cat(
+            [use0, torch.zeros(Bz, N - K, dtype=torch.bool, device=dev)], 1)
+        object_points = torch.where(
+            use_alt[..., None],
+            torch.cat([a_pts, torch.zeros(Bz, N - K, 3, dtype=f32,
+                                          device=dev)], 1),
+            object_points)
+        errors = torch.where(
+            use_alt,
+            torch.cat([a_err, torch.full((Bz, N - K), _INF, dtype=f32,
+                                         device=dev)], 1),
+            errors)
+
+    out = _finalize(object_points, errors, ok, dedupe_eps)
+    if squeeze:
+        out = {k: v[0] for k, v in out.items()}
+    return out
+
+
+def _finalize(object_points, errors, ok, dedupe_eps):
+    """Ghost dedupe: drop a point when a strictly better (or equal-error,
+    lower-index) valid point lies within ``dedupe_eps``.  (B, N, ...)."""
+    if dedupe_eps > 0:
+        diff = object_points[:, :, None, :] - object_points[:, None, :, :]
+        d2 = (diff * diff).sum(dim=-1)
+        n = errors.shape[1]
+        i_idx = torch.arange(n, device=errors.device)
+        better = (errors[:, None, :] < errors[:, :, None]) | (
+            (errors[:, None, :] == errors[:, :, None])
+            & (i_idx[None, :] < i_idx[:, None]))
+        clash = (d2 < dedupe_eps ** 2) & ok[:, None, :] & better
+        ok = ok & ~clash.any(dim=-1)
+        errors = torch.where(ok, errors, _INF)
+    object_points = torch.where(ok[..., None], object_points, 0.0)
+    return {"object_points": object_points, "errors": errors, "valid": ok}

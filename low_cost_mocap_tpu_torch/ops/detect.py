@@ -1,0 +1,106 @@
+"""Blob detection front-end: threshold -> connected components -> centroids.
+
+Counterpart of ``low_cost_mocap_tpu/ops/detect.py``: host-side
+threshold + 1-bit packing, device-side unpacking, and the plain PyTorch
+detector.  The detector labels each lit pixel with its raster index, runs
+``cc_iters`` masked 3x3 min-label sweeps (out-of-frame pixels count as
+``big`` = H*W), takes the first K distinct labels in ascending (raster)
+order and their binary moments.  It is the plain version of the
+``detect_blobs`` CUDA kernel (``ops/detect_cuda.py``).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+@functools.lru_cache(maxsize=64)
+def threshold_cutoff(threshold: float) -> int:
+    """Smallest uint8 pixel value passing the float32 device threshold test
+    (``v * f32(1/255) > f32(threshold)``), or 256 when none does."""
+    passes = (np.arange(256, dtype=np.float32)
+              * np.float32(1.0 / 255.0)) > np.float32(threshold)
+    return int(np.argmax(passes)) if passes.any() else 256
+
+
+def pack_frames(frames_u8: np.ndarray, threshold: float) -> np.ndarray:
+    """Host-side threshold + bit-pack of (C, H, W) uint8 frames, rows
+    MSB-first (``np.packbits``).  The float32 test is monotone in the pixel
+    value, so it reduces to one compare against ``threshold_cutoff``."""
+    frames_u8 = np.asarray(frames_u8)
+    if frames_u8.dtype != np.uint8:
+        raise TypeError(
+            f"pack_frames expects uint8 frames, got {frames_u8.dtype}; "
+            "convert with (frames * 255).astype(np.uint8)")
+    cutoff = threshold_cutoff(float(threshold))
+    if cutoff > 255:
+        return np.zeros(frames_u8.shape[:-1] + (frames_u8.shape[-1] // 8,),
+                        np.uint8)
+    return np.packbits(frames_u8 >= cutoff, axis=-1)
+
+
+def unpack_bits(packed):
+    """(..., W//8) uint8 bit-packed rows -> (..., W) float32 binary frames
+    (MSB first, ``np.packbits`` order)."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., :, None] >> shifts) & 1
+    return bits.reshape(*packed.shape[:-1], packed.shape[-1] * 8).to(
+        torch.float32)
+
+
+def _min_label_step(labels, big: int):
+    """min over the 8-neighbourhood + self, out-of-frame pixels = big."""
+    p = F.pad(labels, (1, 1, 1, 1), value=big)
+    H, W = labels.shape[-2:]
+    vert = torch.minimum(torch.minimum(p[..., 2:, 1:-1], p[..., :-2, 1:-1]),
+                         p[..., 1:-1, 1:-1])
+    vp = F.pad(vert, (1, 1), value=big)
+    return torch.minimum(torch.minimum(vp[..., 2:], vp[..., :-2]), vert)
+
+
+def find_blobs_multi(frames, threshold: float, max_blobs: int,
+                     cc_iters: int = 24):
+    """Detect up to ``max_blobs`` blobs per camera.
+
+    frames: (C, H, W) float32.  Returns (centroids (C, K, 2) xy pixels,
+    valid (C, K) bool, sizes (C, K) f32), components in raster order of
+    their lowest pixel index.  Moments are integer sums, which equal the
+    reference's float32 sums while they stay below 2^24.
+    """
+    C, H, W = frames.shape
+    dev = frames.device
+    big = H * W
+    mask = frames > threshold
+    idx = torch.arange(H * W, dtype=torch.int32, device=dev).reshape(H, W)
+    big_t = torch.tensor(big, dtype=torch.int32, device=dev)
+    labels = torch.where(mask, idx, big_t)
+    for _ in range(cc_iters):
+        labels = torch.where(mask, _min_label_step(labels, big), big_t)
+
+    flat = labels.reshape(C, H * W)
+    cur = flat
+    roots = []
+    for _ in range(max_blobs):
+        r = cur.min(dim=-1).values                              # (C,)
+        cur = torch.where(cur == r[:, None], big_t, cur)
+        roots.append(r)
+    root_ids = torch.stack(roots, dim=1)                        # (C, K)
+    slot_valid = root_ids < big
+
+    member = flat[:, None, :] == root_ids[:, :, None]           # (C, K, HW)
+    xs = idx.reshape(-1) % W
+    ys = idx.reshape(-1) // W
+    m00 = member.sum(dim=-1)
+    sx = (member * xs).sum(dim=-1)
+    sy = (member * ys).sum(dim=-1)
+    m00_f = m00.to(torch.float32)
+    m00_safe = torch.clamp_min(m00_f, 1.0)
+    cent = torch.stack([sx.to(torch.float32) / m00_safe,
+                        sy.to(torch.float32) / m00_safe], dim=-1)
+    valid = slot_valid & (m00 > 0)
+    cent = torch.where(valid[..., None], cent, 0.0)
+    return cent, valid, m00_f * valid

@@ -1,0 +1,50 @@
+"""Streaming Butterworth low-pass bank (order-5 IIR, direct form II-T).
+
+Counterpart of ``low_cost_mocap_tpu/ops/lowpass.py``: the 5-element
+direct-form-II-transposed state per channel advances in O(order) per
+sample — with zero initial state exactly ``scipy.signal.lfilter`` over the
+whole history.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from low_cost_mocap_tpu_torch.device import resolve_device
+
+
+@functools.lru_cache(maxsize=16)
+def butter_coeffs(order: int = 5, cutoff_hz: float = 20.0,
+                  sample_hz: float = 60.0):
+    """(b, a) float32 numpy coefficient arrays (scipy design)."""
+    from scipy.signal import butter
+
+    b, a = butter(order, cutoff_hz / (sample_hz / 2.0), btype="low")
+    return np.asarray(b, np.float32), np.asarray(a, np.float32)
+
+
+def init_state(shape: tuple, order: int = 5, dtype=torch.float32,
+               device=None):
+    """Zero filter state for a bank of channels: shape + (order,), on
+    ``device`` (CUDA by default)."""
+    return torch.zeros(tuple(shape) + (order,), dtype=dtype,
+                       device=resolve_device(device))
+
+
+def lpf_step(state, x, b, a):
+    """One direct-form-II-transposed step for a bank of channels.
+
+    state: (..., order); x: (...) new samples; b, a: (order+1,) tensors.
+    Returns (new_state, y), the recurrence of ``scipy.signal.lfilter``.
+    """
+    y = b[0] * x + state[..., 0]
+    order = state.shape[-1]
+    new = [
+        b[i + 1] * x + state[..., i + 1] - a[i + 1] * y
+        for i in range(order - 1)
+    ]
+    new.append(b[order] * x - a[order] * y)
+    return torch.stack(new, dim=-1), y

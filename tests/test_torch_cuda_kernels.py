@@ -1,0 +1,116 @@
+"""PyTorch port: the hand-written CUDA kernels against their plain PyTorch
+versions, on the card, at shapes beyond the main path's: frames that are
+not a whole number of propagation tiles, ``cc_iters`` from 0 to the most
+that a block's shared memory holds, one to sixteen blob slots, and banks of
+one object up to more objects than one warp holds.
+
+Both kernels perform the float32 operations of their plain versions in the
+same order (no fused multiply-adds, integer moments), so every output must
+be bitwise equal.
+
+These tests need a CUDA card and ``nvcc``: they carry the ``cuda`` marker
+and skip without a card.  On a machine with one, from the repository root:
+
+    python -m pytest tests/test_torch_cuda_kernels.py -q -o addopts="" \
+        --noconftest
+
+(``--noconftest``: the suite's conftest configures JAX, which the port
+does not need.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from low_cost_mocap_tpu_torch.ops import detect, detect_cuda, kalman
+from low_cost_mocap_tpu_torch.ops import kalman_cuda
+
+torch.set_num_threads(1)
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _frames(seed, C, H, W, cc_iters):
+    """Random rectangles, lines longer than cc_iters, single pixels at the
+    0.2 threshold edge (50-52 / 255) and a lit border row."""
+    rng = np.random.default_rng(seed)
+    f = np.zeros((C, H, W), np.float32)
+    u8 = np.float32(1.0 / 255.0)
+    for c in range(C):
+        for _ in range(6):
+            y, x = rng.integers(0, H), rng.integers(0, W)
+            h, w = rng.integers(1, 6, 2)
+            f[c, y:y + h, x:x + w] = rng.uniform(0.3, 1.0)
+        y = rng.integers(0, H)
+        f[c, y, :min(W, 3 * cc_iters + 5)] = 1.0
+        for _ in range(8):
+            f[c, rng.integers(0, H), rng.integers(0, W)] = \
+                np.float32(rng.integers(50, 53)) * u8
+    f[0, H - 1, :] = 1.0
+    return f
+
+
+@pytest.mark.parametrize("C,H,W,cc_iters,K", [
+    (4, 320, 320, 24, 8),      # the main path's shapes
+    (3, 100, 75, 24, 8),       # ragged tiles in both directions
+    (2, 64, 64, 0, 4),         # no propagation: every pixel its own blob
+    (1, 129, 257, 5, 16),
+    (2, 97, 131, 69, 8),       # the most sweeps a block's memory holds
+])
+def test_detect_kernel_matches_plain(dev, C, H, W, cc_iters, K):
+    frames = torch.from_numpy(_frames(C * H + W, C, H, W, cc_iters)).to(dev)
+    got = detect_cuda.find_blobs(frames, 0.2, K, cc_iters)
+    want = detect.find_blobs_multi(frames, 0.2, K, cc_iters)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool(got[1].any())
+
+
+def test_detect_kernel_refuses_too_many_sweeps(dev):
+    frames = torch.zeros((1, 64, 64), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        detect_cuda.find_blobs(frames, 0.2, 8, 70)
+
+
+def _bank_case(seed, B, M, O):
+    rng = np.random.default_rng(seed)
+    cp = rng.normal(0, 0.4, (B, M, 3)).astype(np.float32)
+    cp[:, M // 2:] = cp[:, :M - M // 2]                  # association ties
+    ch = rng.normal(0, 1, (B, M)).astype(np.float32)
+    ci = rng.integers(-1, O, (B, M)).astype(np.int32)    # -1: no drone
+    cv = rng.random((B, M)) < 0.5
+    dts = np.full((B,), 1 / 60, np.float32)
+    dts[B // 2] = 0.7                                    # gap re-seed
+    return cp, ch, ci, cv, dts
+
+
+@pytest.mark.parametrize("B,M,O", [(1, 1, 1), (7, 32, 2), (300, 32, 2),
+                                   (20, 64, 33)])
+@pytest.mark.parametrize("report", ["pre", "post"])
+def test_bank_kernel_matches_plain_chain(dev, B, M, O, report):
+    case = [torch.from_numpy(a).to(dev) for a in _bank_case(B + O, B, M, O)]
+    st0 = kalman.init_state(O, device=dev)
+    st1, tr1 = kalman_cuda.kalman_scan(st0, *case, report=report)
+    st2, tr2 = kalman.update_scan(st0, *case, report=report)
+    torch.cuda.synchronize()
+    for g, w in zip((*st1, *tr1), (*st2, *tr2)):
+        assert torch.equal(g, w)
+    # the kernel's state carries on: a second batch from the first's end
+    st3, tr3 = kalman_cuda.kalman_scan(st1, *case, report=report)
+    st4, tr4 = kalman.update_scan(st2, *case, report=report)
+    for g, w in zip((*st3, *tr3), (*st4, *tr4)):
+        assert torch.equal(g, w)
+
+
+def test_bank_kernel_refuses_mismatched_shapes(dev):
+    case = [torch.from_numpy(a).to(dev) for a in _bank_case(0, 4, 8, 2)]
+    case[1] = case[1][:, :4]
+    with pytest.raises(ValueError, match="shape"):
+        kalman_cuda.kalman_scan(kalman.init_state(2, device=dev), *case)
