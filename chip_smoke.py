@@ -9,7 +9,8 @@ cc_iters 24, 2 candidates per camera, 2 drones, batches of 128:
 
 1. build both kernels (in parallel) and print the card;
 2. ``detect_blobs`` against its plain PyTorch version on 4x320x320 frames
-   with threshold-edge pixels and a line longer than cc_iters;
+   with threshold-edge pixels and a line longer than cc_iters, at cc_iters
+   24 and at 150 (three passes of the kernel);
 3. ``kalman_bank`` against the plain chain at B=128, M=32, O=2 (dropouts,
    association ties, a gap re-seed) and at B=1;
 4. per-frame serving: the port's ``Engine.process_frame`` over 300
@@ -17,9 +18,14 @@ cc_iters 24, 2 candidates per camera, 2 drones, batches of 128:
    frame, the drones are tracked near ground truth;
 5. the batched tail: ``scan_track_from_blobs`` at B=128 on blobs the
    detection kernel found, against 128 per-frame ``track_from_blobs`` rows;
-6. times (CUDA events, median of 20 runs) beside each kernel's bound;
+6. times beside each kernel's bound: the event window (CUDA events around
+   the wrapper, median of 20 calls) and the device time (``torch.profiler``,
+   every kernel, memset and copy of 20 calls);
 7. where a served frame's time goes: each stage timed alone, then device
-   busy time, kernels and copies per frame under ``torch.profiler``.
+   busy time, kernels and copies per frame under ``torch.profiler``;
+8. only with ``--compare-with DIR``: phase 6's kernel times for the
+   checkout in DIR and for this one, in four processes in turns (old, new,
+   new, old) on the same card.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -28,7 +34,9 @@ exits non-zero; without CUDA it exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -48,6 +56,9 @@ ROWS_ATOL = 1e-5
 # on an H100 these frames gave 10.4 mm mean, 12.4 mm max
 TRACK_MEAN_M, TRACK_MAX_M = 0.015, 0.025
 
+# phase [2] also checks detection at this many sweeps, more than one pass
+# of the kernel holds (69 with its 32-pixel tile)
+LONG_CC_ITERS = 150
 N_FRAMES = 300
 WARM_FRAMES = 20     # frames left out of the steady-state frames/s
 SETTLE_FRAMES = 60   # frames before the tracking error is held to bounds
@@ -138,18 +149,26 @@ def phase_detect(cfg, frames_np):
     from low_cost_mocap_tpu_torch.ops import detect, detect_cuda
 
     frames = torch.from_numpy(frames_np).to(DEVICE)
-    args = (cfg.detect_threshold, cfg.max_blobs, cfg.cc_iters)
-    c1, v1, s1 = detect_cuda.find_blobs(frames, *args)
-    c2, v2, s2 = detect.find_blobs_multi(frames, *args)
-    torch.cuda.synchronize()
-    check(torch.equal(v1, v2), "detect_blobs: valid differs from plain")
-    check(torch.equal(s1, s2), "detect_blobs: size differs from plain")
-    err = max(max_err(c1, c2), max_err(s1, s2))
-    check(err <= DETECT_ATOL, f"detect_blobs: centroid error {err}")
-    check(bool(v1[2].all()) and not bool(v1[3].any()),
-          "detect_blobs: long line / dark camera not as expected")
-    print(f"[2] detect_blobs == plain on 4x320x320 (valid per camera "
-          f"{v1.sum(1).tolist()}), max_abs_err {err}")
+    err = 0.0
+    # the main path's cc_iters, then more sweeps than one pass holds
+    for cc in (cfg.cc_iters, LONG_CC_ITERS):
+        args = (cfg.detect_threshold, cfg.max_blobs, cc)
+        c1, v1, s1 = detect_cuda.find_blobs(frames, *args)
+        c2, v2, s2 = detect.find_blobs_multi(frames, *args)
+        torch.cuda.synchronize()
+        check(torch.equal(v1, v2), f"detect_blobs cc_iters={cc}: valid "
+              "differs from plain")
+        check(torch.equal(s1, s2), f"detect_blobs cc_iters={cc}: size "
+              "differs from plain")
+        err = max(err, max_err(c1, c2), max_err(s1, s2))
+        check(err <= DETECT_ATOL, f"detect_blobs cc_iters={cc}: centroid "
+              f"error {err}")
+        # at 24 sweeps the 72-pixel line splits into more than 8 blobs
+        check((bool(v1[2].all()) or cc != cfg.cc_iters)
+              and not bool(v1[3].any()),
+              "detect_blobs: long line / dark camera not as expected")
+        print(f"[2] detect_blobs == plain on 4x320x320 at cc_iters {cc} "
+              f"(valid per camera {v1.sum(1).tolist()}), max_abs_err {err}")
     return err
 
 
@@ -339,15 +358,34 @@ def wall_median(fn, runs=5):
     return float(np.median(times))
 
 
-def detect_bound(cfg, C, H, W):
-    """Least time: cc_iters sweeps of 8 two-input mins + 1 select per
-    pixel (operations) vs reading the float32 frames once and writing the
-    outputs (bytes)."""
-    ops = cfg.cc_iters * 9 * C * H * W
+def detect_bound(frames, cfg):
+    """Least time for these frames: each lit pixel takes a 9-way min and a
+    select for every sweep that still changes some label of its camera (the
+    kernel skips dark tiles and stops at the fixed point), against reading
+    the float32 frames once and writing the outputs (bytes).  Returns
+    (ms, "operations" or "bytes", sweeps needed per camera)."""
+    import torch
+
+    from low_cost_mocap_tpu_torch.ops import detect
+
+    C, H, W = frames.shape
+    mask = frames > cfg.detect_threshold
+    big = H * W
+    idx = torch.arange(big, dtype=torch.int32, device=frames.device)
+    big_t = torch.tensor(big, dtype=torch.int32, device=frames.device)
+    labels = torch.where(mask, idx.reshape(H, W), big_t)
+    sweeps = torch.zeros(C, dtype=torch.int64, device=frames.device)
+    for _ in range(cfg.cc_iters):
+        nxt = torch.where(mask, detect._min_label_step(labels, big), big_t)
+        sweeps += (nxt != labels).flatten(1).any(1)
+        labels = nxt
+    sweeps = sweeps.cpu()
+    lit = mask.flatten(1).sum(1).cpu()
+    ops = int((lit * sweeps).sum()) * 9
     nbytes = C * H * W * 4 + C * cfg.max_blobs * (2 * 4 + 1 + 4)
     t_ops, t_bytes = ops / PEAK_OPS_S, nbytes / PEAK_BYTES_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
-        else "bytes"
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", sweeps.tolist())
 
 
 def bank_bound(case_valid, case_index, B, M, O):
@@ -370,19 +408,63 @@ def bank_bound(case_valid, case_index, B, M, O):
         else "bytes"
 
 
+def device_ms(fn, runs=TIMING_RUNS):
+    """Device time of one call of ``fn`` under ``torch.profiler``: every
+    kernel, memset and copy it puts on the card, summed over ``runs``
+    calls and divided by ``runs``.  Returns (ms, {name: ms per call})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    per = {e.key[:60]: e.self_device_time_total / 1e3 / runs
+           for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA}
+    return sum(per.values()), per
+
+
+def kernel_times(frames, args, cands, num_objects):
+    """Event-window ms (``cuda_ms``) and device ms (``device_ms``) of the
+    two kernels' wrappers at the main path's shapes: detection on
+    ``frames``, the bank on ``cands`` at B = len(cands[0]) and at B = 1."""
+    from low_cost_mocap_tpu_torch.ops import detect_cuda, kalman, kalman_cuda
+
+    st = kalman.init_state(num_objects, device=DEVICE)
+    one = tuple(c[:1] for c in cands)
+    calls = {"detect_blobs": lambda: detect_cuda.find_blobs(frames, *args),
+             f"kalman_bank B={len(cands[0])}":
+                 lambda: kalman_cuda.kalman_scan(st, *cands),
+             "kalman_bank B=1": lambda: kalman_cuda.kalman_scan(st, *one)}
+    out = {}
+    for name, fn in calls.items():
+        dev, per = device_ms(fn)
+        out[name] = {"ms": cuda_ms(fn), "device_ms": dev, "device": per}
+    return out
+
+
+def print_kernel_times(tag, times):
+    for name, t in times.items():
+        print(f"{tag} {name}: {t['ms']:.4f} ms event window, "
+              f"{t['device_ms']:.4f} ms on the device ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in t["device"].items())
+              + ")")
+
+
 def phase_times(rig, cfg, frames_np, batch, launches, errs):
     import torch
 
     from low_cost_mocap_tpu_torch.models import pipeline
-    from low_cost_mocap_tpu_torch.ops import detect, detect_cuda, kalman
-    from low_cost_mocap_tpu_torch.ops import kalman_cuda
+    from low_cost_mocap_tpu_torch.ops import detect, kalman
 
     frames = torch.from_numpy(frames_np).to(DEVICE)
     args = (cfg.detect_threshold, cfg.max_blobs, cfg.cc_iters)
-    C, H, W = frames.shape
-    det_ms = cuda_ms(lambda: detect_cuda.find_blobs(frames, *args))
     det_plain = cuda_ms(lambda: detect.find_blobs_multi(frames, *args))
-    det_bound, det_by = detect_bound(cfg, C, H, W)
+    det_bound, det_by, sweeps = detect_bound(frames, cfg)
 
     # the bank on the main path's batch: candidates the geometry located
     blobs, valid, dts, cal, tail = batch
@@ -390,14 +472,18 @@ def phase_times(rig, cfg, frames_np, batch, launches, errs):
     loc = geo[3]
     st = kalman.init_state(rig.num_objects, device=DEVICE)
     cands = (loc.pos, loc.heading, loc.index, loc.valid, dts)
-    bank_ms = cuda_ms(lambda: kalman_cuda.kalman_scan(st, *cands))
+    times = kernel_times(frames, args, cands, rig.num_objects)
+    B, M = loc.valid.shape
+    det_ms = times["detect_blobs"]["ms"]
+    bank_ms = times[f"kalman_bank B={B}"]["ms"]
+    bank1_ms = times["kalman_bank B=1"]["ms"]
     bank_plain = cuda_ms(lambda: kalman.update_scan(st, *cands))
     one = tuple(c[:1] for c in cands)
-    bank1_ms = cuda_ms(lambda: kalman_cuda.kalman_scan(st, *one))
     bank1_plain = cuda_ms(lambda: kalman.update_scan(st, *one))
-    B, M = loc.valid.shape
     bank_b, bank_by = bank_bound(loc.valid, loc.index, B, M,
                                  rig.num_objects)
+    bank1_b, bank1_by = bank_bound(loc.valid[:1], loc.index[:1], 1, M,
+                                   rig.num_objects)
     # the batched tail end to end (geometry + bank + packing + readback)
     # against the same frames served one track_from_blobs call at a time
     def tail_batched():
@@ -415,11 +501,14 @@ def phase_times(rig, cfg, frames_np, batch, launches, errs):
     fps_p = B / wall_median(tail_per_frame, runs=3)
     print(f"[6] batched tail (blobs on the device) {fps_b:.1f} frames/s at "
           f"B={B}; per-frame track_from_blobs {fps_p:.1f} frames/s")
+    print_kernel_times("[6]", times)
     print(f"[6] detect_blobs {det_ms:.4f} ms (plain {det_plain:.4f} ms, "
-          f"bound {det_bound:.6f} ms); kalman_bank B={B} {bank_ms:.4f} ms "
-          f"(plain {bank_plain:.4f} ms, bound {bank_b:.6f} ms), B=1 "
-          f"{bank1_ms:.4f} ms (plain {bank1_plain:.4f} ms)")
-    return {"kernels": [
+          f"bound {det_bound:.6f} ms by {det_by}; sweeps that change a "
+          f"label, per camera: {sweeps}); kalman_bank B={B} {bank_ms:.4f} "
+          f"ms (plain {bank_plain:.4f} ms, bound {bank_b:.3e} ms by "
+          f"{bank_by}), B=1 {bank1_ms:.4f} ms (plain {bank1_plain:.4f} ms, "
+          f"bound {bank1_b:.3e} ms by {bank1_by})")
+    return frames, args, cands, {"kernels": [
         {"name": "detect_blobs", "route": "cuda",
          "source": "low_cost_mocap_tpu_torch/csrc/detect_blobs.cu",
          "replaces": "low_cost_mocap_tpu/ops/detect_pallas.py:112",
@@ -521,9 +610,80 @@ def phase_breakdown(eng, src, fps):
               f"{e.count / n:6.1f}x  {e.key[:90]}")
 
 
+def phase_compare(old_root, frames, args, cands, num_objects):
+    """[8] The kernels of another checkout (``old_root``, a directory that
+    holds its ``low_cost_mocap_tpu_torch``) against this one's, on the same
+    card and the same inputs: four processes in turns, old, new, new, old,
+    each building its own kernels and running ``kernel_times``."""
+    import tempfile
+
+    import torch
+
+    script = os.path.abspath(__file__)
+    here = os.path.dirname(script)
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "inputs.pt")
+        torch.save({"frames": frames.cpu(), "args": list(args),
+                    "cands": [c.cpu() for c in cands], "O": num_objects},
+                   path)
+        for label, root in (("old", old_root), ("new", here), ("new", here),
+                            ("old", old_root)):
+            code = (f"import runpy, sys; sys.argv = [{script!r}, "
+                    f"'--time-kernels', {path!r}]; "
+                    f"runpy.run_path({script!r}, run_name='__main__')")
+            proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                                  capture_output=True, text=True,
+                                  timeout=600)
+            check(proc.returncode == 0,
+                  f"timing run in {root} failed:\n{proc.stderr[-3000:]}")
+            line = [ln for ln in proc.stdout.splitlines()
+                    if ln.startswith("TIMES ")][-1]
+            res = json.loads(line[len("TIMES "):])
+            check(res["package"].startswith(os.path.abspath(root)),
+                  f"timing run in {root} imported {res['package']}")
+            runs.append((label, res))
+            print_kernel_times(f"[8] {label} ({root})", res["times"])
+    for name in runs[0][1]["times"]:
+        row = {}
+        for label in ("old", "new"):
+            ts = [r["times"][name] for lb, r in runs if lb == label]
+            row[label] = tuple(float(np.mean([t[k] for t in ts]))
+                               for k in ("ms", "device_ms"))
+        print(f"[8] {name}: event window {row['old'][0]:.4f} -> "
+              f"{row['new'][0]:.4f} ms, device {row['old'][1]:.4f} -> "
+              f"{row['new'][1]:.4f} ms (old = {old_root}, mean of two runs "
+              "each)")
+
+
+def time_kernels_main(path):
+    """``--time-kernels``: ``kernel_times`` on saved inputs, printed as one
+    ``TIMES {...}`` line (a process of ``phase_compare``)."""
+    import torch
+
+    from low_cost_mocap_tpu_torch.ops import native
+
+    if not torch.cuda.is_available():
+        fail("CUDA is not available")
+    d = torch.load(path)
+    times = kernel_times(d["frames"].to(DEVICE), tuple(d["args"]),
+                         tuple(c.to(DEVICE) for c in d["cands"]), d["O"])
+    print("TIMES " + json.dumps({"package": os.path.abspath(native.__file__),
+                                 "times": times}))
+
+
 def main() -> None:
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--compare-with", metavar="DIR",
+                    help="also time the kernels of the checkout in DIR "
+                    "against this one's, in turns (phase 8)")
+    ap.add_argument("--time-kernels", metavar="INPUTS", help=argparse.SUPPRESS)
+    opts = ap.parse_args()
+    if opts.time_kernels:
+        time_kernels_main(opts.time_kernels)
+        return
     if not torch.cuda.is_available():
         fail("CUDA is not available")
     from low_cost_mocap_tpu_torch.config import EngineConfig
@@ -552,9 +712,12 @@ def main() -> None:
     print(f"    main path launches: detect_blobs {launches[0]}, "
           f"kalman_bank {launches[1]}")
 
-    report = phase_times(rig, cfg, frames_np, batch, launches,
-                         (det_err, bank_err))
+    frames, args, cands, report = phase_times(
+        rig, cfg, frames_np, batch, launches, (det_err, bank_err))
     phase_breakdown(eng, src, fps)
+    if opts.compare_with:
+        phase_compare(opts.compare_with, frames, args, cands,
+                      rig.num_objects)
     print(f"    total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(report))
     print(smi)

@@ -3,39 +3,60 @@
 // Replaces the TPU kernel low_cost_mocap_tpu/ops/kalman_pallas.py
 // (_bank_kernel, launched by kalman_scan).  Each step, per object:
 // lazy init from the lowest-slot candidate; constant-acceleration predict
-// as slice arithmetic; first-minimum nearest-candidate association; a
-// velocity measurement over the time since the last detection, re-seeded
-// after gap_reset_s; six sequential scalar updates (H = [I6|0],
+// as slice arithmetic; nearest-candidate association with the argmin
+// rule; a velocity measurement over the time since the last detection,
+// re-seeded after gap_reset_s; six sequential scalar updates (H = [I6|0],
 // R = r I); a long-gap re-seed; order-5 Butterworth on heading and
 // velocity.  State is committed only on frames with a detection.
 //
-// Layout.  One block per rig (grid = 1), one thread per object.  The B
-// loop runs inside the kernel and the object's state (x, P, filters)
-// stays in registers for the whole batch.  The TPU kernel walked B as a
-// sequential grid with the state in VMEM; blocks on Hopper run in no
-// order, so nothing is carried between blocks.
-//
 // What bounds it on an H100.  Not bytes (a few KB per batch) and not
-// arithmetic (~3k flops per object per step): the step-to-step dependency
-// chain of B steps, each a few thousand dependent float32 instructions
-// (IEEE divisions included) on one thread.  The design keeps that chain
-// free of memory traffic: the state never leaves registers and a step with
-// no candidate for the object skips the update, as the commit rule makes
-// that step a no-op.  Spreading one object's 9x9 covariance update over a
-// warp is the next step for speed.
+// arithmetic (~2k flops per object per step): the step-to-step dependency
+// chain.  The TPU walked B as a sequential grid with the state in VMEM;
+// blocks on Hopper run in no order, so the B loop runs inside the kernel
+// and the chain's length is what the design shortens.
+//
+// Layout.  One warp per object, ceil(O / 8) blocks of up to 8 object
+// warps.  x, the filters, age and prev are replicated on every lane; lane i
+// (0-8) holds row i of the 9x9 covariance in nine registers, and rows move
+// between lanes by shuffles, so the chain never waits on shared memory.
+// - Predict: lane i builds row i of F P from rows i+3 and i+6, then
+//   applies F^T to its own row and adds Q, the + 0.0f on the off-diagonal
+//   entries included: every entry performs the plain chain's float
+//   operations in its order.
+// - Six scalar updates: for each k, every lane takes row k from lane k;
+//   lane i divides its own P[i][k] by P[k][k] + r, so the nine IEEE
+//   divisions run side by side, and updates its row and x[i].  Each step of the
+//   chain is a shuffle, an add, a division and a multiply-subtract.  The
+//   covariance stays block-diagonal by axis, so two thirds of the
+//   dividends are exact zeros; div_rn answers them with the signed zero
+//   IEEE division gives, without the division's slow path.
+// - Association: candidates stride over the lanes; two warp reductions
+//   (__reduce_min_sync) on an integer key that orders d2 with NaN first,
+//   then on the slot, give torch.argmin's rule: the first NaN wins, else
+//   the first minimum; when every distance is inf, slot 0.
+// - Candidates: every object reads the same step's candidates, so the
+//   block stages them in shared memory, double-buffered.  Each thread
+//   issues its loads for step t + 1 right after the barrier of step t and
+//   stores them at the top of step t + 1, so no global load sits on the
+//   step-to-step chain.  A candidate's valid flag is folded into its index
+//   (-1 when invalid).
+// - A step with no candidate for the object skips the update: the commit
+//   rule makes that step a no-op except for age.
 //
 // Numerics.  The operations and their order are those of the plain
 // PyTorch chain (low_cost_mocap_tpu_torch/ops/kalman.py:update), which
 // follows the JAX package: (x0 + dt*x3) + hdt2*x6; the same two-sided
 // F P F^T slice arithmetic; Kv = P[:,k] / (P[k,k] + r); the squared
-// distance as (dx*dx + dy*dy) + dz*dz; a strict < over m = 0..M-1 so the
-// first minimum wins.  Built with -fmad=false and without fast math, the
-// kernel agrees with the chain bitwise.
+// distance as (dx*dx + dy*dy) + dz*dz.  Built with -fmad=false and without
+// fast math, the kernel agrees with the chain bitwise.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
+
+constexpr int MAX_WARPS = 8;     // object warps per block
+constexpr unsigned FULL = 0xffffffffu;
 
 // Butterworth coefficients, passed by value: they reach the kernel in its
 // parameter space, with no device buffer and no copy before the launch.
@@ -43,6 +64,29 @@ struct Butter {
   float b[6];
   float a[6];
 };
+
+// One step's candidates in shared memory: pos (M, 3), heading (M),
+// index (M, -1 where invalid), dt.
+struct Stage {
+  float* pos;
+  float* head;
+  int* idx;
+  float* dt;
+};
+
+__device__ Stage stage_at(float* base, int M) {
+  return Stage{base, base + 3 * M, (int*)(base + 4 * M), base + 5 * M};
+}
+
+// a / b, rounded to nearest as IEEE division is.  A zero dividend gets
+// its signed zero without the division, whose range check (FCHK) would
+// send it to a slow path; a zero or NaN divisor still divides.
+__device__ __forceinline__ float div_rn(float a, float b) {
+  if (a == 0.0f && b == b && b != 0.0f)
+    return __int_as_float((__float_as_int(a) ^ __float_as_int(b)) &
+                          0x80000000);
+  return a / b;
+}
 
 __global__ void kalman_bank_kernel(
     const float* __restrict__ cand_pos,            // (B, M, 3)
@@ -66,53 +110,97 @@ __global__ void kalman_bank_kernel(
     unsigned char* __restrict__ init_out, float* __restrict__ prev_out,
     float* __restrict__ lh_out, float* __restrict__ lv_out,
     float* __restrict__ age_out,
-    int B, int M, int O, float q, float r, float gap_reset_s,
+    int B, int M, int O, int warps, float q, float r, float gap_reset_s,
     int report_post) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= O) return;
-
-  float x[9], P[81], prev[3], lh[5], lv[15];
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int o = blockIdx.x * warps + warp;
+  const bool active = warp < warps && o < O;
+  // lanes 0-8 hold row `lane` of P; the other lanes carry a row that no
+  // result reads
+  const int prow = lane % 9;
+  float Pr[9], x[9], prev[3], lh[5], lv[15], age = 0.0f;
+  bool inited = false;
+  if (active) {
 #pragma unroll
-  for (int i = 0; i < 9; ++i) x[i] = x_in[o * 9 + i];
+    for (int i = 0; i < 9; ++i) x[i] = x_in[o * 9 + i];
 #pragma unroll
-  for (int i = 0; i < 81; ++i) P[i] = P_in[o * 81 + i];
+    for (int i = 0; i < 3; ++i) prev[i] = prev_in[o * 3 + i];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) prev[i] = prev_in[o * 3 + i];
+    for (int i = 0; i < 5; ++i) lh[i] = lh_in[o * 5 + i];
 #pragma unroll
-  for (int i = 0; i < 5; ++i) lh[i] = lh_in[o * 5 + i];
+    for (int i = 0; i < 15; ++i) lv[i] = lv_in[o * 15 + i];
 #pragma unroll
-  for (int i = 0; i < 15; ++i) lv[i] = lv_in[o * 15 + i];
-  bool inited = init_in[o] != 0;
-  float age = age_in[o];
-  float bc[6], ac[6];
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    bc[i] = bw.b[i];
-    ac[i] = bw.a[i];
+    for (int j = 0; j < 9; ++j) Pr[j] = P_in[o * 81 + prow * 9 + j];
+    inited = init_in[o] != 0;
+    age = age_in[o];
   }
 
+  // the next step's candidates, loaded ahead into registers: this thread's
+  // share is pos elements tid, tid + T, tid + 2T and candidate tid (T >= M
+  // unless M > 1024; the rest is then loaded at the store)
+  float np0 = 0.0f, np1 = 0.0f, np2 = 0.0f, nhead = 0.0f, ndt = 0.0f;
+  int nidx = -1;
+  unsigned char nval = 0;
+#define LCM_FETCH(t)                                                      \
+  do {                                                                    \
+    const float* cp_ = cand_pos + (size_t)(t) * M * 3;                    \
+    if (tid < 3 * M) np0 = cp_[tid];                                      \
+    if (tid + T < 3 * M) np1 = cp_[tid + T];                              \
+    if (tid + 2 * T < 3 * M) np2 = cp_[tid + 2 * T];                      \
+    if (tid < M) {                                                        \
+      nhead = cand_head[(size_t)(t) * M + tid];                           \
+      nidx = cand_index[(size_t)(t) * M + tid];                           \
+      nval = cand_valid[(size_t)(t) * M + tid];                           \
+    }                                                                     \
+    if (tid == 0) ndt = dts[t];                                           \
+  } while (0)
+
+  if (B > 0) LCM_FETCH(0);
   for (int t = 0; t < B; ++t) {
-    const float dt = dts[t];
-    const float* cp = cand_pos + (size_t)t * M * 3;
-    const float* ch = cand_head + (size_t)t * M;
-    const int* ci = cand_index + (size_t)t * M;
-    const unsigned char* cv = cand_valid + (size_t)t * M;
+    const Stage s = stage_at(smem + (t & 1) * (5 * M + 1), M);
+    if (tid < 3 * M) s.pos[tid] = np0;
+    if (tid + T < 3 * M) s.pos[tid + T] = np1;
+    if (tid + 2 * T < 3 * M) s.pos[tid + 2 * T] = np2;
+    if (tid < M) {
+      s.head[tid] = nhead;
+      s.idx[tid] = nval ? nidx : -1;
+    }
+    if (tid == 0) *s.dt = ndt;
+    for (int e = tid + 3 * T; e < 3 * M; e += T)
+      s.pos[e] = cand_pos[(size_t)t * M * 3 + e];
+    for (int m = tid + T; m < M; m += T) {
+      s.head[m] = cand_head[(size_t)t * M + m];
+      s.idx[m] = cand_valid[(size_t)t * M + m] ? cand_index[(size_t)t * M + m]
+                                               : -1;
+    }
+    __syncthreads();
+    if (t + 1 < B) LCM_FETCH(t + 1);
+    if (!active) continue;
+
+    const float dt = *s.dt;
     float* po = pos_out + ((size_t)t * O + o) * 3;
     float* vo = vel_out + ((size_t)t * O + o) * 3;
 
+    // the object's lowest-slot candidate
     int first = -1;
-    for (int m = 0; m < M; ++m) {
-      if (cv[m] && ci[m] == o) {
-        first = m;
+    for (int base = 0; base < M; base += 32) {
+      const int m = base + lane;
+      const unsigned bal = __ballot_sync(FULL, m < M && s.idx[m] == o);
+      if (bal != 0u) {
+        first = base + __ffs(bal) - 1;
         break;
       }
     }
     if (first < 0) {
       // no detection: nothing is committed, the outputs are zero
-      po[0] = po[1] = po[2] = 0.0f;
-      vo[0] = vo[1] = vo[2] = 0.0f;
-      head_out[(size_t)t * O + o] = 0.0f;
-      valid_out[(size_t)t * O + o] = 0;
+      if (lane == 0) {
+        po[0] = po[1] = po[2] = 0.0f;
+        vo[0] = vo[1] = vo[2] = 0.0f;
+        head_out[(size_t)t * O + o] = 0.0f;
+        valid_out[(size_t)t * O + o] = 0;
+      }
       age = age + dt;
       continue;
     }
@@ -121,8 +209,8 @@ __global__ void kalman_bank_kernel(
     if (!inited) {
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
-        x[i] = cp[first * 3 + i];
-        prev[i] = cp[first * 3 + i];
+        x[i] = s.pos[first * 3 + i];
+        prev[i] = s.pos[first * 3 + i];
       }
       inited = true;
     }
@@ -136,78 +224,81 @@ __global__ void kalman_bank_kernel(
       xp[i + 3] = x[i + 3] + dt * x[i + 6];
       xp[i + 6] = x[i + 6];
     }
-    // F @ P on rows, in place: row i reads rows i+3 and i+6, which are
-    // still unchanged when rows are taken in increasing order
+    // F @ P on rows: row i from rows i, i+3, i+6 (lanes i+3, i+6)
+    float fp[9];
 #pragma unroll
-    for (int c = 0; c < 9; ++c) {
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-        P[i * 9 + c] = (P[i * 9 + c] + dt * P[(i + 3) * 9 + c])
-                       + hdt2 * P[(i + 6) * 9 + c];
-#pragma unroll
-      for (int i = 3; i < 6; ++i)
-        P[i * 9 + c] = P[i * 9 + c] + dt * P[(i + 3) * 9 + c];
+    for (int j = 0; j < 9; ++j) {
+      const float p3 = __shfl_sync(FULL, Pr[j], lane + 3);
+      const float p6 = __shfl_sync(FULL, Pr[j], lane + 6);
+      fp[j] = prow < 3 ? (Pr[j] + dt * p3) + hdt2 * p6
+            : prow < 6 ? Pr[j] + dt * p3
+                       : Pr[j];
     }
-    // (F @ P) @ F^T on columns, in place, then + Q (q on the diagonal)
+    // (F @ P) @ F^T on the row's columns, then + Q (q on the diagonal, 0
+    // elsewhere)
 #pragma unroll
-    for (int i = 0; i < 9; ++i) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        P[i * 9 + c] = (P[i * 9 + c] + dt * P[i * 9 + c + 3])
-                       + hdt2 * P[i * 9 + c + 6];
-#pragma unroll
-      for (int c = 3; c < 6; ++c)
-        P[i * 9 + c] = P[i * 9 + c] + dt * P[i * 9 + c + 3];
-#pragma unroll
-      for (int c = 0; c < 9; ++c)
-        P[i * 9 + c] = P[i * 9 + c] + (i == c ? q : 0.0f);
+    for (int j = 0; j < 9; ++j) {
+      const float f = j < 3 ? (fp[j] + dt * fp[j + 3]) + hdt2 * fp[j + 6]
+                    : j < 6 ? fp[j] + dt * fp[j + 3]
+                            : fp[j];
+      Pr[j] = f + (prow == j ? q : 0.0f);
     }
 
-    // associate: nearest candidate, the first minimum
-    int sel = 0;
-    float best = INFINITY;
-    for (int m = 0; m < M; ++m) {
-      if (!(cv[m] && ci[m] == o)) continue;
-      const float dx = cp[m * 3 + 0] - xp[0];
-      const float dy = cp[m * 3 + 1] - xp[1];
-      const float dz = cp[m * 3 + 2] - xp[2];
-      const float d2 = (dx * dx + dy * dy) + dz * dz;
-      if (d2 < best) {
-        best = d2;
+    // associate: the nearest candidate by torch.argmin's rule, as two
+    // warp reductions on an order-preserving key (d2 >= +0, so its bits
+    // order it; NaN below everything)
+    unsigned best = 0xffffffffu;
+    int sel = 0x7fffffff;
+    for (int m = lane; m < M; m += 32) {
+      float d2 = INFINITY;
+      if (s.idx[m] == o) {
+        const float dx = s.pos[m * 3 + 0] - xp[0];
+        const float dy = s.pos[m * 3 + 1] - xp[1];
+        const float dz = s.pos[m * 3 + 2] - xp[2];
+        d2 = (dx * dx + dy * dy) + dz * dz;
+      }
+      const unsigned key = isnan(d2) ? 0u : __float_as_uint(d2) + 1u;
+      if (key < best) {   // the lane's candidates in increasing m
+        best = key;
         sel = m;
       }
     }
+    const unsigned best_w = __reduce_min_sync(FULL, best);
+    sel = __reduce_min_sync(FULL, best == best_w ? sel : 0x7fffffff);
+
     float z[6];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) z[i] = cp[sel * 3 + i];
+    for (int i = 0; i < 3; ++i) z[i] = s.pos[sel * 3 + i];
     const float elapsed = age + dt;
     const bool reseed = elapsed > gap_reset_s;
     const float el = fmaxf(elapsed, 1e-6f);
 #pragma unroll
-    for (int i = 0; i < 3; ++i) z[i + 3] = (z[i] - (reseed ? z[i] : prev[i])) / el;
+    for (int i = 0; i < 3; ++i)
+      z[i + 3] = div_rn(z[i] - (reseed ? z[i] : prev[i]), el);
 
-    // correct: six sequential scalar measurement updates
-    float xq[9];
+    // correct: six sequential scalar measurement updates; lane i takes
+    // Kv[i] = P[i][k] / (P[k][k] + r) and updates row i and x[i]; row k
+    // and x[k] come from lane k
+    float xi = xp[0];
 #pragma unroll
-    for (int i = 0; i < 9; ++i) xq[i] = xp[i];
+    for (int i = 1; i < 9; ++i)
+      if (prow == i) xi = xp[i];
 #pragma unroll
     for (int k = 0; k < 6; ++k) {
-      float Kv[9], Rk[9];
-      const float denom = P[k * 9 + k] + r;
+      const float denom = __shfl_sync(FULL, Pr[k], k) + r;
+      const float innov = z[k] - __shfl_sync(FULL, xi, k);
+      float Rk[9];
 #pragma unroll
-      for (int i = 0; i < 9; ++i) {
-        Kv[i] = P[i * 9 + k] / denom;
-        Rk[i] = P[k * 9 + i];
-      }
-      const float innov = z[k] - xq[k];
+      for (int j = 0; j < 9; ++j) Rk[j] = __shfl_sync(FULL, Pr[j], k);
+      float kv = 0.0f;
+      if (lane < 9) kv = div_rn(Pr[k], denom);
+      xi = xi + kv * innov;
 #pragma unroll
-      for (int i = 0; i < 9; ++i) xq[i] = xq[i] + Kv[i] * innov;
-#pragma unroll
-      for (int i = 0; i < 9; ++i)
-#pragma unroll
-        for (int j = 0; j < 9; ++j)
-          P[i * 9 + j] = P[i * 9 + j] - Kv[i] * Rk[j];
+      for (int j = 0; j < 9; ++j) Pr[j] = Pr[j] - kv * Rk[j];
     }
+    float xq[9];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) xq[i] = __shfl_sync(FULL, xi, i);
 
     // long-gap reacquisition: re-seed from the measurement
     const bool reseed_all = reseed && inited;
@@ -215,7 +306,7 @@ __global__ void kalman_bank_kernel(
 #pragma unroll
       for (int i = 0; i < 9; ++i) xq[i] = i < 3 ? z[i] : 0.0f;
 #pragma unroll
-      for (int i = 0; i < 81; ++i) P[i] = (i % 10 == 0) ? 1.0f : 0.0f;
+      for (int j = 0; j < 9; ++j) Pr[j] = prow == j ? 1.0f : 0.0f;
     }
     const bool rep_post = report_post || reseed_all;
     float xr[9];
@@ -223,82 +314,111 @@ __global__ void kalman_bank_kernel(
     for (int i = 0; i < 9; ++i) xr[i] = rep_post ? xq[i] : xp[i];
 
     // low-pass banks (direct form II transposed, order 5)
-    const float hin = ch[sel];
-    const float yh = bc[0] * hin + lh[0];
+    const float hin = s.head[sel];
+    const float yh = bw.b[0] * hin + lh[0];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) lh[i] = (bc[i + 1] * hin + lh[i + 1]) - ac[i + 1] * yh;
-    lh[4] = bc[5] * hin - ac[5] * yh;
+    for (int i = 0; i < 4; ++i)
+      lh[i] = (bw.b[i + 1] * hin + lh[i + 1]) - bw.a[i + 1] * yh;
+    lh[4] = bw.b[5] * hin - bw.a[5] * yh;
     float yv[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      float* s = lv + c * 5;
+      float* f = lv + c * 5;
       const float vin = xr[3 + c];
-      yv[c] = bc[0] * vin + s[0];
+      yv[c] = bw.b[0] * vin + f[0];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[i] = (bc[i + 1] * vin + s[i + 1]) - ac[i + 1] * yv[c];
-      s[4] = bc[5] * vin - ac[5] * yv[c];
+      for (int i = 0; i < 4; ++i)
+        f[i] = (bw.b[i + 1] * vin + f[i + 1]) - bw.a[i + 1] * yv[c];
+      f[4] = bw.b[5] * vin - bw.a[5] * yv[c];
     }
 
     // commit (this object had a detection) and report
+    if (lane == 0) {
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      po[i] = xr[i];
-      vo[i] = yv[i];
-      prev[i] = z[i];
+      for (int i = 0; i < 3; ++i) {
+        po[i] = xr[i];
+        vo[i] = yv[i];
+      }
+      head_out[(size_t)t * O + o] = yh;
+      valid_out[(size_t)t * O + o] = 1;
     }
-    head_out[(size_t)t * O + o] = yh;
-    valid_out[(size_t)t * O + o] = 1;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) prev[i] = z[i];
 #pragma unroll
     for (int i = 0; i < 9; ++i) x[i] = xq[i];
     age = 0.0f;
   }
 
+#undef LCM_FETCH
+  if (!active) return;
+  if (lane < 9) x_out[o * 9 + lane] = x[lane];
+  if (lane < 9) {
 #pragma unroll
-  for (int i = 0; i < 9; ++i) x_out[o * 9 + i] = x[i];
+    for (int j = 0; j < 9; ++j) P_out[o * 81 + lane * 9 + j] = Pr[j];
+  }
+  if (lane == 0) {
 #pragma unroll
-  for (int i = 0; i < 81; ++i) P_out[o * 81 + i] = P[i];
+    for (int i = 0; i < 3; ++i) prev_out[o * 3 + i] = prev[i];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) prev_out[o * 3 + i] = prev[i];
+    for (int i = 0; i < 5; ++i) lh_out[o * 5 + i] = lh[i];
 #pragma unroll
-  for (int i = 0; i < 5; ++i) lh_out[o * 5 + i] = lh[i];
-#pragma unroll
-  for (int i = 0; i < 15; ++i) lv_out[o * 15 + i] = lv[i];
-  init_out[o] = inited ? 1 : 0;
-  age_out[o] = age;
+    for (int i = 0; i < 15; ++i) lv_out[o * 15 + i] = lv[i];
+    init_out[o] = inited ? 1 : 0;
+    age_out[o] = age;
+  }
 }
 
 }  // namespace
 
 // ba_host: host memory, the (2, 6) float32 Butterworth b; a.
+// out: one buffer.  float32 pos (B, O, 3), vel (B, O, 3), heading (B, O),
+// x (O, 9), P (O, 9, 9), prev_pos (O, 3), lpf_heading (O, 5),
+// lpf_vel (O, 3, 5), age (O,); then bytes valid (B, O), initialized (O,).
 extern "C" int lcm_kalman_bank(
     const void* cand_pos, const void* cand_head, const void* cand_index,
     const void* cand_valid, const void* dts, const void* ba_host,
     const void* x_in, const void* P_in, const void* init_in,
     const void* prev_in, const void* lh_in, const void* lv_in,
-    const void* age_in,
-    void* pos_out, void* vel_out, void* head_out, void* valid_out,
-    void* x_out, void* P_out, void* init_out, void* prev_out, void* lh_out,
-    void* lv_out, void* age_out,
-    int B, int M, int O, float q, float r, float gap_reset_s,
-    int report_post, void* stream) {
+    const void* age_in, void* out, int B, int M, int O, float q, float r,
+    float gap_reset_s, int report_post, void* stream) {
   Butter bw;
   const float* ba = (const float*)ba_host;
   for (int i = 0; i < 6; ++i) {
     bw.b[i] = ba[i];
     bw.a[i] = ba[6 + i];
   }
-  const int threads = 32;
-  const int blocks = (O + threads - 1) / threads;
-  kalman_bank_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const size_t BO = (size_t)B * O;
+  float* pos = (float*)out;
+  float* vel = pos + BO * 3;
+  float* head = vel + BO * 3;
+  float* x = head + BO;
+  float* P = x + (size_t)O * 9;
+  float* prev = P + (size_t)O * 81;
+  float* lh = prev + (size_t)O * 3;
+  float* lv = lh + (size_t)O * 5;
+  float* age = lv + (size_t)O * 15;
+  unsigned char* valid = (unsigned char*)(age + O);
+  unsigned char* init = valid + BO;
+
+  const int warps = O < MAX_WARPS ? O : MAX_WARPS;
+  int threads = 32 * warps > M ? 32 * warps : M;
+  threads = (threads + 31) / 32 * 32;
+  if (threads > 1024) threads = 1024;
+  const int blocks = (O + warps - 1) / warps;
+  const size_t smem = 2 * (5 * (size_t)M + 1) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kalman_bank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kalman_bank_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       (const float*)cand_pos, (const float*)cand_head,
       (const int*)cand_index, (const unsigned char*)cand_valid,
-      (const float*)dts, bw, (const float*)x_in,
-      (const float*)P_in, (const unsigned char*)init_in,
-      (const float*)prev_in, (const float*)lh_in, (const float*)lv_in,
-      (const float*)age_in, (float*)pos_out, (float*)vel_out,
-      (float*)head_out, (unsigned char*)valid_out, (float*)x_out,
-      (float*)P_out, (unsigned char*)init_out, (float*)prev_out,
-      (float*)lh_out, (float*)lv_out, (float*)age_out, B, M, O, q, r,
+      (const float*)dts, bw, (const float*)x_in, (const float*)P_in,
+      (const unsigned char*)init_in, (const float*)prev_in,
+      (const float*)lh_in, (const float*)lv_in, (const float*)age_in, pos,
+      vel, head, valid, x, P, init, prev, lh, lv, age, B, M, O, warps, q, r,
       gap_reset_s, report_post);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,10 @@
 """PyTorch port: the hand-written CUDA kernels against their plain PyTorch
 versions, on the card, at shapes beyond the main path's: frames that are
-not a whole number of propagation tiles, ``cc_iters`` from 0 to the most
-that a block's shared memory holds, one to sixteen blob slots, and banks of
-one object up to more objects than one warp holds.
+not a whole number of propagation tiles, ``cc_iters`` from 0 to more than
+one pass of the kernel holds, an all-lit frame where no tile is skipped,
+one to sixteen blob slots, banks of one object up to more objects than a
+block holds, candidate counts that do not fill a warp or spill past one,
+ties across lanes, and NaN and infinite candidate distances.
 
 Both kernels perform the float32 operations of their plain versions in the
 same order (no fused multiply-adds, integer moments), so every output must
@@ -61,22 +63,48 @@ def _frames(seed, C, H, W, cc_iters):
     (3, 100, 75, 24, 8),       # ragged tiles in both directions
     (2, 64, 64, 0, 4),         # no propagation: every pixel its own blob
     (1, 129, 257, 5, 16),
-    (2, 97, 131, 69, 8),       # the most sweeps a block's memory holds
+    (2, 97, 131, 69, 8),       # the most sweeps one pass holds
 ])
 def test_detect_kernel_matches_plain(dev, C, H, W, cc_iters, K):
     frames = torch.from_numpy(_frames(C * H + W, C, H, W, cc_iters)).to(dev)
+    _check_detect(frames, K, cc_iters)
+
+
+def _check_detect(frames, K, cc_iters):
     got = detect_cuda.find_blobs(frames, 0.2, K, cc_iters)
     want = detect.find_blobs_multi(frames, 0.2, K, cc_iters)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert bool(got[1].any())
+    return got
 
 
-def test_detect_kernel_refuses_too_many_sweeps(dev):
-    frames = torch.zeros((1, 64, 64), device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        detect_cuda.find_blobs(frames, 0.2, 8, 70)
+@pytest.mark.parametrize("cc_iters", [70, 150])
+def test_detect_kernel_refuses_too_many_sweeps(dev, cc_iters):
+    """No longer refuses: sweeps beyond one pass's halo (69) run in further
+    passes through a global label buffer, bitwise equal to the plain
+    version, on a frame with lines longer than cc_iters."""
+    frames = torch.from_numpy(_frames(cc_iters, 2, 97, 331, cc_iters)).to(dev)
+    _check_detect(frames, 8, cc_iters)
+
+
+@pytest.mark.parametrize("cc_iters", [0, 24, 70])
+def test_detect_kernel_all_lit_frame(dev, cc_iters):
+    """Every pixel lit: no tile is skipped, no sweep reaches a fixed point
+    early, and every label is a root candidate."""
+    frames = torch.ones((4, 320, 320), device=dev)
+    cent, valid, size = _check_detect(frames, 8, cc_iters)
+    assert bool(valid.all())
+
+
+def test_detect_kernel_all_dark_frame(dev):
+    frames = torch.zeros((4, 320, 320), device=dev)
+    got = detect_cuda.find_blobs(frames, 0.2, 8, 24)
+    want = detect.find_blobs_multi(frames, 0.2, 8, 24)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not bool(got[1].any())
 
 
 def _bank_case(seed, B, M, O):
@@ -91,22 +119,57 @@ def _bank_case(seed, B, M, O):
     return cp, ch, ci, cv, dts
 
 
+def _special_case(kind, B=24, M=33, O=3):
+    """A bank case with NaN candidate positions ("nan"), positions whose
+    squared distances overflow to inf ("inf"), or every candidate of a step
+    at one position, so all distances tie across the lanes ("ties")."""
+    cp, ch, ci, cv, dts = _bank_case(7, B, M, O)
+    if kind == "nan":
+        cp[5, 3:M:4] = np.nan            # some of every object's candidates
+        cp[9, :, 1] = np.nan             # one coordinate of all of them
+        cp[14][ci[14] == 1] = np.nan     # all of object 1's
+    elif kind == "inf":
+        cp[4:7] = np.float32(3e19)
+        cp[4:7, ::3] = np.float32(-3e19)
+    else:
+        cp[:] = cp[:, :1]
+    return cp, ch, ci, cv, dts
+
+
+def _assert_same(got, want):
+    """Bitwise equal, NaN where the other has NaN."""
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+
 @pytest.mark.parametrize("B,M,O", [(1, 1, 1), (7, 32, 2), (300, 32, 2),
-                                   (20, 64, 33)])
+                                   (20, 64, 33), (9, 7, 2), (40, 33, 3)])
 @pytest.mark.parametrize("report", ["pre", "post"])
 def test_bank_kernel_matches_plain_chain(dev, B, M, O, report):
     case = [torch.from_numpy(a).to(dev) for a in _bank_case(B + O, B, M, O)]
+    _check_bank(dev, case, O, report)
+
+
+def _check_bank(dev, case, O, report="pre"):
     st0 = kalman.init_state(O, device=dev)
     st1, tr1 = kalman_cuda.kalman_scan(st0, *case, report=report)
     st2, tr2 = kalman.update_scan(st0, *case, report=report)
     torch.cuda.synchronize()
-    for g, w in zip((*st1, *tr1), (*st2, *tr2)):
-        assert torch.equal(g, w)
+    _assert_same((*st1, *tr1), (*st2, *tr2))
     # the kernel's state carries on: a second batch from the first's end
     st3, tr3 = kalman_cuda.kalman_scan(st1, *case, report=report)
     st4, tr4 = kalman.update_scan(st2, *case, report=report)
-    for g, w in zip((*st3, *tr3), (*st4, *tr4)):
-        assert torch.equal(g, w)
+    _assert_same((*st3, *tr3), (*st4, *tr4))
+
+
+@pytest.mark.parametrize("kind", ["nan", "inf", "ties"])
+@pytest.mark.parametrize("M", [7, 33])
+def test_bank_kernel_associates_as_argmin(dev, kind, M):
+    """Association follows torch.argmin: the first NaN distance wins, else
+    the first minimum, and slot 0 when every distance is inf."""
+    case = [torch.from_numpy(a).to(dev)
+            for a in _special_case(kind, M=M)]
+    _check_bank(dev, case, 3)
 
 
 def test_bank_kernel_refuses_mismatched_shapes(dev):

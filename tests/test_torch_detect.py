@@ -4,7 +4,9 @@ The port's plain detector (``ops/detect.py:find_blobs_multi`` — the plain
 version of the ``detect_blobs`` CUDA kernel) against the JAX Pallas kernel
 in interpret mode and the JAX XLA detector, on rendered frames plus an
 empty frame, pixels at the threshold edge and a lit line longer than
-``cc_iters`` (which truncated propagation splits).  Validity and sizes are
+``cc_iters`` (which truncated propagation splits), a lit snake longer than
+70 and 100 sweeps (more than one pass of the CUDA kernel holds), and
+all-lit and all-dark frames.  Validity and sizes are
 exactly equal; centroids are compared exactly too (integer moments below
 2^24 and one float32 division on both sides), within the atol 1e-5 the
 JAX package's own Pallas test uses.
@@ -80,6 +82,66 @@ def test_plain_detector_matches_jax(which):
         assert valid[1].all()
         assert size[1, 0] == CC_ITERS + 1 and (size[1, 1:] == 1).all()
         assert not valid[2].any() and not cent[2].any() and not size[2].any()
+
+
+def _snake(H=40, W=40):
+    """Camera 0: a serpentine line of about 400 pixels; camera 1: a dot."""
+    f = np.zeros((2, H, W), np.float32)
+    rows = list(range(1, H - 1, 4))
+    for k, y in enumerate(rows):
+        f[0, y, 1:W - 1] = 1.0
+        if k + 1 < len(rows):
+            f[0, y:y + 5, W - 2 if k % 2 == 0 else 1] = 1.0
+    f[1, 20:22, 7:9] = 1.0
+    return f
+
+
+@pytest.mark.parametrize("cc_iters", [70, 100])
+def test_plain_detector_matches_jax_beyond_one_pass(cc_iters):
+    """More sweeps than one pass of the CUDA kernel holds (69): the snake
+    is longer than cc_iters, so truncated propagation still splits it."""
+    frames = _snake()
+    port = detect.find_blobs_multi(torch.from_numpy(frames), 0.2, 8,
+                                   cc_iters=cc_iters)
+    with pltpu.force_tpu_interpret_mode():
+        pallas = detect_pallas.find_blobs_pallas(jnp.asarray(frames), 0.2, 8,
+                                                 cc_iters=cc_iters)
+    xla = jdetect.find_blobs_multi(jnp.asarray(frames), 0.2, 8,
+                                   cc_iters=cc_iters)
+    _check(port, pallas)
+    _check(port, xla)
+    valid, size = port[1].numpy(), port[2].numpy()
+    # the snake splits into more pieces than there are slots
+    assert valid[0].all() and size[0].sum() < frames[0].sum()
+    assert valid[1].sum() == 1 and size[1, 0] == 4
+
+
+@pytest.mark.parametrize("lit", [True, False])
+def test_plain_detector_matches_jax_on_uniform_frames(lit):
+    frames = np.full((2, 24, 40), 1.0 if lit else 0.0, np.float32)
+    port = detect.find_blobs_multi(torch.from_numpy(frames), 0.2, 8,
+                                   cc_iters=CC_ITERS)
+    with pltpu.force_tpu_interpret_mode():
+        pallas = detect_pallas.find_blobs_pallas(jnp.asarray(frames), 0.2, 8,
+                                                 cc_iters=CC_ITERS)
+    xla = jdetect.find_blobs_multi(jnp.asarray(frames), 0.2, 8,
+                                   cc_iters=CC_ITERS)
+    _check(port, pallas)
+    _check(port, xla)
+    assert bool(port[1].all()) == lit and bool(port[1].any()) == lit
+
+
+def test_wrapper_on_card_refuses_non_contiguous_frames(monkeypatch):
+    """On the card the wrapper converts nothing: a strided view is refused
+    before any kernel is built."""
+    def no_kernel(name):
+        raise RuntimeError(f"no {name} kernel built")
+
+    monkeypatch.setattr(native, "on_card", lambda t: True)
+    monkeypatch.setattr(native, "load", no_kernel)
+    frames = torch.from_numpy(_hard_frames())[:, :, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        detect_cuda.find_blobs(frames, 0.2, 8, cc_iters=CC_ITERS)
 
 
 def test_plain_detector_keeps_first_k_in_raster_order():

@@ -98,6 +98,44 @@ def test_plain_bank_matches_jax_update_chain(report, ties, jit):
     _assert_state(st, got_st, tol)
 
 
+def _nan_case():
+    """The random case with one candidate of object 0 at a NaN position,
+    behind a finite one of the same object: argmin takes the NaN."""
+    case = _case(seed=11)
+    cp, _, ci, cv, _ = case
+    t = next(t for t in range(len(cp)) if (cv[t] & (ci[t] == 0)).sum() >= 2)
+    m = np.flatnonzero(cv[t] & (ci[t] == 0))[1]
+    cp[t, m, 0] = np.nan
+    return case, t
+
+
+@pytest.mark.parametrize("jit", [True, False])
+@pytest.mark.parametrize("report", ["pre", "post"])
+def test_plain_bank_matches_jax_update_chain_with_nan_candidate(report, jit):
+    """Association at a NaN distance: the plain chain and JAX's
+    ``kalman.update`` both follow argmin (the first NaN wins), and the NaN
+    reaches the same outputs and state."""
+    case, t_nan = _nan_case()
+    cp, ch, ci, cv, dts = case
+    st = jkalman.init_state(2)
+    want = []
+    with jax.disable_jit(not jit):
+        for t in range(len(dts)):
+            st, tr = jkalman.update(
+                st, jnp.asarray(cp[t]), jnp.asarray(ch[t]),
+                jnp.asarray(ci[t]), jnp.asarray(cv[t]), jnp.asarray(dts[t]),
+                report=report)
+            want.append(tr)
+    got_st, got = kalman.update_scan(_port_state(2), *_port_inputs(case),
+                                     report=report)
+    tol = _JIT_TOL if jit else _EXACT
+    for t in range(len(dts)):
+        _assert_tracked(want[t], got, t, tol)
+    _assert_state(st, got_st, tol)
+    assert not torch.isnan(got.vel[:t_nan]).any()
+    assert torch.isnan(got.vel[t_nan + 1:, 0]).any()
+
+
 def test_plain_bank_matches_pallas_interpret():
     case = _case(seed=5, B=12, M=6)
     st_p, got_p = jkalman_scan(
@@ -132,6 +170,20 @@ def test_wrapper_on_card_never_falls_back(monkeypatch):
     with pytest.raises(RuntimeError, match="kalman_bank"):
         kalman_cuda.kalman_scan(_port_state(2), *_port_inputs(_case()))
     assert kalman_cuda.launches == before
+
+
+def test_wrapper_on_card_refuses_other_dtypes(monkeypatch):
+    """On the card the wrapper converts nothing: an int64 index is refused
+    before any kernel is built."""
+    def no_kernel(name):
+        raise RuntimeError(f"no {name} kernel built")
+
+    monkeypatch.setattr(native, "on_card", lambda t: True)
+    monkeypatch.setattr(native, "load", no_kernel)
+    case = list(_port_inputs(_case()))
+    case[2] = case[2].to(torch.int64)
+    with pytest.raises(ValueError, match="contiguous torch.int32"):
+        kalman_cuda.kalman_scan(_port_state(2), *case)
 
 
 def test_report_must_be_pre_or_post():
