@@ -7,25 +7,44 @@ tracking step at the configuration the repo serves — the reference's
 four-camera PS3-Eye rig: 4 cameras, 320x320 frames, 8 blob slots,
 cc_iters 24, 2 candidates per camera, 2 drones, batches of 128:
 
-1. build both kernels (in parallel) and print the card;
+1. build both kernels and the native host library (nvcc and g++ in
+   parallel) and print the card;
 2. ``detect_blobs`` against its plain PyTorch version on 4x320x320 frames
    with threshold-edge pixels and a line longer than cc_iters, at cc_iters
    24 and at 150 (three passes of the kernel);
+2b. host detection (the native library) against the ``detect_blobs``
+   kernel on the same frames, bitwise;
 3. ``kalman_bank`` against the plain chain at B=128, M=32, O=2 (dropouts,
    association ties, a gap re-seed) and at B=1;
-4. per-frame serving: the port's ``Engine.process_frame`` over 300
-   deterministic frames of two drones — both kernels launch once per
+4. per-frame serving with detection on the card: the port's
+   ``Engine(host_detect=False).process_frame`` over 300 deterministic
+   frames of two drones (sparse ingest) — both kernels launch once per
    frame, the drones are tracked near ground truth;
+4b. per-frame serving the default way, host detection: 300 frames at
+   readback pipelining depth 0 and at depth 2, bitwise equal, the bank
+   kernel once per frame;
+4c. batched serving: the Engine at ``dispatch_batch`` 128 over 4 batches,
+   inline and with the emit worker, against the per-frame host-detect
+   events on the same frames;
+4d. the Socket.IO server over the CUDA engine on a localhost port: a
+   websocket client starts triangulation and receives object-points;
+4e. the same through the launcher, ``python -m
+   low_cost_mocap_tpu_torch.serve``, run as a process of its own;
 5. the batched tail: ``scan_track_from_blobs`` at B=128 on blobs the
    detection kernel found, against 128 per-frame ``track_from_blobs`` rows;
 6. times beside each kernel's bound: the event window (CUDA events around
    the wrapper, median of 20 calls) and the device time (``torch.profiler``,
    every kernel, memset and copy of 20 calls);
-7. where a served frame's time goes: each stage timed alone, then device
-   busy time, kernels and copies per frame under ``torch.profiler``;
+7. where a served frame's time goes, for detection on the card and on the
+   host: each stage timed alone, then device busy time, kernels and copies
+   per frame under ``torch.profiler``, and the idle share of each serving
+   path;
 8. only with ``--compare-with DIR``: phase 6's kernel times for the
    checkout in DIR and for this one, in four processes in turns (old, new,
    new, old) on the same card.
+
+Before each serving path ([4]-[5]) the kernels' launch counts are set to 0,
+and after it they are held to what the path must launch.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -63,6 +82,8 @@ N_FRAMES = 300
 WARM_FRAMES = 20     # frames left out of the steady-state frames/s
 SETTLE_FRAMES = 60   # frames before the tracking error is held to bounds
 BATCH = 128
+BATCH_ROUNDS = 4     # batches the batched Engine serves in [4c]
+SERVER_EVENTS = 100  # object-points events [4d] waits for
 DEVICE = "cuda"
 TIMING_RUNS = 20
 BREAKDOWN_FRAMES = 30
@@ -106,15 +127,21 @@ def max_err(a, b) -> float:
 
 
 def phase_build():
+    from low_cost_mocap_tpu_torch.control import bindings
     from low_cost_mocap_tpu_torch.ops import native
 
     t0 = time.perf_counter()
     names = ("detect_blobs", "kalman_bank")
-    pending = {n: native.start_build(n) for n in names}   # nvcc in parallel
+    # nvcc for each kernel and g++ for the host library, all at once
+    pending = {n: native.start_build(n) for n in names}
+    host = bindings.start_build()
     for n in names:
         native.finish_build(n, pending[n])
         native.load(n)
-    print(f"[1] built {', '.join(names)} in "
+    bindings.finish_build(host)
+    bindings.get_lib()
+    print(f"[1] built {', '.join(names)} and the host library "
+          f"{bindings.library_path().name} in "
           f"{time.perf_counter() - t0:.2f} s")
     for n in names:
         for line in native.build_log(n).splitlines():
@@ -172,6 +199,42 @@ def phase_detect(cfg, frames_np):
     return err
 
 
+def phase_host_detect(cfg, frames_np):
+    """[2b] The native host detector on phase [2]'s frames (as the uint8
+    frames they were made from) against the ``detect_blobs`` kernel.  The
+    host finds exact connected components; the kernel's sweeps stop at
+    cc_iters, so they agree everywhere at 150 sweeps, and at 24 on every
+    camera but the one with the 72-pixel line."""
+    import torch
+
+    from low_cost_mocap_tpu_torch.control import bindings
+    from low_cost_mocap_tpu_torch.ops import detect, detect_cuda
+
+    u8 = np.rint(frames_np * 255.0).astype(np.uint8)
+    check(np.array_equal(u8.astype(np.float32) * np.float32(1.0 / 255.0),
+                         frames_np), "smoke frames are not uint8 / 255")
+    cutoff = detect.threshold_cutoff(cfg.detect_threshold)
+    hc, hv, hs = bindings.ingest_detect(u8, cutoff, cfg.max_blobs)
+    packed = bindings.ingest_detect_packed(u8, cutoff, cfg.max_blobs)
+    check(np.array_equal(packed[..., :2], hc)
+          and np.array_equal(packed[..., 2] > 0.5, hv),
+          "ingest_detect_packed differs from ingest_detect")
+    frames = torch.from_numpy(frames_np).to(DEVICE)
+    for cc, cams in ((LONG_CC_ITERS, [0, 1, 2, 3]),
+                     (cfg.cc_iters, [0, 1, 3])):
+        kc, kv, ks = (t.cpu().numpy() for t in detect_cuda.find_blobs(
+            frames, cfg.detect_threshold, cfg.max_blobs, cc))
+        for name, a, b in (("valid", hv, kv), ("centroids", hc, kc),
+                           ("sizes", hs, ks)):
+            check(np.array_equal(a[cams], b[cams]),
+                  f"host detection {name} differs from detect_blobs at "
+                  f"cc_iters {cc} on cameras {cams}")
+    print(f"[2b] host detection == detect_blobs (centroids, validity, "
+          f"sizes bitwise) at cc_iters {LONG_CC_ITERS} on all cameras and "
+          f"at {cfg.cc_iters} on cameras 0, 1, 3; valid per camera "
+          f"{hv.sum(1).tolist()}")
+
+
 def bank_case(B, M=32, O=2, seed=0):
     """Random candidates with dropouts, duplicated (tied) candidates and a
     frame gap above gap_reset_s."""
@@ -216,47 +279,29 @@ def phase_bank():
 
 
 def phase_serve(rig, cfg, Rs, ts):
-    import torch
-
-    from low_cost_mocap_tpu_torch.ops import detect_cuda, kalman_cuda
     from low_cost_mocap_tpu_torch.runtime.engine import Engine
+    from low_cost_mocap_tpu_torch.runtime.serial_link import CollectingLink
     from low_cost_mocap_tpu_torch.runtime.sources import SyntheticSource
 
     src = SyntheticSource(rig, Rs, ts, num_drones=2, headings=(0.0, np.pi))
     frames = [src.read_at(i / 60) for i in range(N_FRAMES)]
-    eng = Engine(rig, cfg, device=DEVICE)
+    # detection on the card: sparse ingest + the detect_blobs kernel
+    eng = Engine(rig, cfg, src, CollectingLink(), host_detect=False,
+                 device=DEVICE)
     eng.set_camera_poses(Rs, ts)
     eng.is_capturing_points = True
     eng.is_triangulating_points = True
     eng.is_locating_objects = True
     payloads = []
     eng.on("object-points", payloads.append)
-    d0, k0 = detect_cuda.launches, kalman_cuda.launches
     outs, stamps = [], [time.perf_counter()]
     for f in frames:   # each call ends in a device->host readback
         outs.append(eng.process_frame(f, 1 / 60))
         stamps.append(time.perf_counter())
-    check(detect_cuda.launches - d0 == N_FRAMES,
-          "detect_blobs did not launch once per frame")
-    check(kalman_cuda.launches - k0 == N_FRAMES,
-          "kalman_bank did not launch once per frame")
     check(len(payloads) == N_FRAMES, "object-points not emitted per frame")
 
-    errs, seen = [], 0
-    for i, out in enumerate(outs[SETTLE_FRAMES:], start=SETTLE_FRAMES):
-        gt = np.stack([src.drone_pose(d, i / 60)[0] for d in range(2)])
-        gt_w = np.stack([-gt[:, 0], gt[:, 2], -gt[:, 1]], axis=1)  # to_world
-        tv = out.tracked.valid
-        if tv.all():
-            seen += 1
-        for o in np.where(tv)[0]:
-            d = np.linalg.norm(gt_w - out.tracked.pos[o], axis=1)
-            errs.append(d.min())
-        check(not tv.all() or np.linalg.norm(
-            out.tracked.pos[0] - out.tracked.pos[1]) > 0.3,
-            f"frame {i}: both tracks on one drone")
+    errs, seen = payload_track_errors(src, payloads)
     n_late = N_FRAMES - SETTLE_FRAMES
-    errs = np.asarray(errs)
     check(seen >= 0.95 * n_late,
           f"both drones tracked in only {seen}/{n_late} settled frames")
     check(errs.mean() < TRACK_MEAN_M and errs.max() < TRACK_MAX_M,
@@ -265,13 +310,407 @@ def phase_serve(rig, cfg, Rs, ts):
           "non-finite object points")
     fps = (N_FRAMES - WARM_FRAMES) / (stamps[-1] - stamps[WARM_FRAMES])
     fps_all = N_FRAMES / (stamps[-1] - stamps[0])
-    print(f"[4] served {N_FRAMES} frames through Engine.process_frame: "
+    print(f"[4] served {N_FRAMES} frames through Engine(host_detect=False)"
+          f".process_frame: "
           f"{fps:.1f} frames/s after the first {WARM_FRAMES} "
           f"({fps_all:.1f} with them); both drones tracked in "
           f"{seen}/{n_late} settled frames, "
           f"error mean {errs.mean() * 1e3:.2f} mm max "
           f"{errs.max() * 1e3:.2f} mm; one launch of each kernel per frame")
     return eng, src, fps
+
+
+def start_tracking(eng, Rs, ts):
+    """The reference client's way in: triangulate-points, locate-objects."""
+    from low_cost_mocap_tpu_torch.runtime.engine import \
+        camera_poses_to_serializable
+
+    eng.handle("triangulate-points", {
+        "startOrStop": "start",
+        "cameraPoses": camera_poses_to_serializable(Rs, ts)})
+    eng.handle("locate-objects", {"startOrStop": "start"})
+
+
+def serving_engine(rig, cfg, Rs, ts, src, **kw):
+    """A CUDA engine, tracking, with its object-points payloads collected."""
+    from low_cost_mocap_tpu_torch.runtime.engine import Engine
+    from low_cost_mocap_tpu_torch.runtime.serial_link import CollectingLink
+
+    eng = Engine(rig, cfg, src, CollectingLink(), device=DEVICE, **kw)
+    payloads = []
+    eng.on("object-points", payloads.append)
+    start_tracking(eng, Rs, ts)
+    return eng, payloads
+
+
+def reset_launches():
+    from low_cost_mocap_tpu_torch.ops import detect_cuda, kalman_cuda
+
+    detect_cuda.launches = 0
+    kalman_cuda.launches = 0
+
+
+def read_launches(path, want_detect, want_bank):
+    """Hold a path's launches to what it must launch (``want_bank`` None:
+    at least one); returns (detect, bank)."""
+    from low_cost_mocap_tpu_torch.ops import detect_cuda, kalman_cuda
+
+    got = (detect_cuda.launches, kalman_cuda.launches)
+    ok = got[0] == want_detect and (got[1] >= 1 if want_bank is None
+                                    else got[1] == want_bank)
+    check(ok, f"{path}: launches (detect_blobs, kalman_bank) = {got}, "
+          f"want ({want_detect}, {want_bank or '>= 1'})")
+    return got
+
+
+def payload_track_errors(src, payloads):
+    """Tracking error (m) of each settled frame's filtered drones against
+    the orbit's ground truth, and the frames with both drones tracked."""
+    errs, seen = [], 0
+    for i, p in enumerate(payloads[SETTLE_FRAMES:], start=SETTLE_FRAMES):
+        gt = np.stack([src.drone_pose(d, i / 60)[0] for d in range(2)])
+        gt_w = np.stack([-gt[:, 0], gt[:, 2], -gt[:, 1]], axis=1)
+        pos = [np.asarray(o["pos"]) for o in p["filtered_objects"]]
+        if len(pos) == 2:
+            seen += 1
+            check(np.linalg.norm(pos[0] - pos[1]) > 0.3,
+                  f"frame {i}: both tracks on one drone")
+        errs += [np.linalg.norm(gt_w - x, axis=1).min() for x in pos]
+    return np.asarray(errs), seen
+
+
+def compare_payloads(got, want, what):
+    """object-points payloads: discrete fields (point counts, drone
+    indices) equal, floats within ROWS_ATOL; returns the largest float
+    difference."""
+    check(len(got) == len(want), f"{what}: {len(got)} events, want "
+          f"{len(want)}")
+    worst = 0.0
+    for g, w in zip(got, want):
+        check(len(g["object_points"]) == len(w["object_points"])
+              and [o["droneIndex"] for o in g["objects"]]
+              == [o["droneIndex"] for o in w["objects"]]
+              and [o["droneIndex"] for o in g["filtered_objects"]]
+              == [o["droneIndex"] for o in w["filtered_objects"]],
+              f"{what}: discrete fields differ")
+        pairs = [(g["object_points"], w["object_points"]),
+                 (g["errors"], w["errors"])]
+        for key, fields in (("objects", ("pos", "heading", "error")),
+                            ("filtered_objects", ("pos", "vel", "heading"))):
+            for a, b in zip(g[key], w[key]):
+                pairs += [(a[f], b[f]) for f in fields]
+        for a, b in pairs:
+            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+            if a.size:
+                worst = max(worst, float(np.abs(a - b).max()))
+    check(worst <= ROWS_ATOL, f"{what}: max_abs_err {worst}")
+    return worst
+
+
+def stage_means(eng) -> str:
+    """The engine's own StageTimer: mean ms of each stage over its window
+    (the last 240 samples)."""
+    return ", ".join(f"{k} {v['mean_ms']:.3f}"
+                     for k, v in eng.timer.summary().items())
+
+
+def phase_host_serve(rig, cfg, Rs, ts, src):
+    """[4b] The default card engine (host detection) over the frames of
+    [4], at readback depth 0 and 2 in turns (0, 2, 2, 0): every run's
+    payloads bitwise equal, the bank kernel once per frame."""
+    import dataclasses
+
+    frames = [src.read_at(i / 60) for i in range(N_FRAMES)]
+    runs = []
+    for depth in (0, 2, 2, 0):
+        eng, payloads = serving_engine(
+            rig, dataclasses.replace(cfg, readback_pipeline_depth=depth),
+            Rs, ts, src)
+        check(eng._host_detect and eng._batch == 1,
+              "the default card engine does not detect on the host")
+        reset_launches()
+        stamps = [time.perf_counter()]
+        for f in frames:
+            eng.process_frame(f, 1 / 60)
+            stamps.append(time.perf_counter())
+        eng.flush_batches()
+        read_launches(f"[4b] depth {depth}", 0, N_FRAMES)
+        fps = (N_FRAMES - WARM_FRAMES) / (stamps[-1] - stamps[WARM_FRAMES])
+        runs.append((depth, eng, payloads, fps))
+    base = runs[0][2]
+    for depth, _, payloads, _ in runs[1:]:
+        check(payloads == base, f"[4b] depth {depth} payloads differ from "
+              "depth 0")
+    errs, seen = payload_track_errors(src, base)
+    n_late = N_FRAMES - SETTLE_FRAMES
+    check(seen >= 0.95 * n_late,
+          f"[4b] both drones tracked in only {seen}/{n_late} frames")
+    check(errs.mean() < TRACK_MEAN_M and errs.max() < TRACK_MAX_M,
+          f"[4b] tracking error mean {errs.mean():.4f} max "
+          f"{errs.max():.4f} m")
+    fps = {d: float(np.mean([r[3] for r in runs if r[0] == d]))
+           for d in (0, 2)}
+    print(f"[4b] served {N_FRAMES} frames with host detection at readback "
+          f"depth 0 and 2 (in turns 0, 2, 2, 0): "
+          + ", ".join(f"{r[3]:.1f}" for r in runs)
+          + f" frames/s after the first {WARM_FRAMES} (mean depth 0 "
+          f"{fps[0]:.1f}, depth 2 {fps[2]:.1f}); all four runs' payloads "
+          f"bitwise equal; both drones tracked in {seen}/{n_late} settled "
+          f"frames, error mean {errs.mean() * 1e3:.2f} mm max "
+          f"{errs.max() * 1e3:.2f} mm; kalman_bank once a frame, "
+          "detect_blobs never")
+    print(f"[4b] engine stages, last depth-0 run (mean ms a frame): "
+          f"{stage_means(runs[-1][1])}")
+    return runs[-1][1], fps
+
+
+def phase_batched_engine(rig, cfg, Rs, ts, src):
+    """[4c] The Engine at dispatch_batch = BATCH over BATCH_ROUNDS batches,
+    inline and with the emit worker, against per-frame host-detect serving
+    of the same frames.  Each batched engine first serves one batch to
+    warm up, then starts tracking afresh; the timed frames/s covers host
+    detection, dispatch, readback, decode and emits."""
+    import dataclasses
+
+    from low_cost_mocap_tpu_torch.utils.profiling import StageTimer
+
+    n = BATCH_ROUNDS * BATCH
+    frames = [src.read_at((N_FRAMES + BATCH + i) / 60) for i in range(n)]
+    ref, ref_payloads = serving_engine(rig, cfg, Rs, ts, src)
+    reset_launches()
+    t0 = time.perf_counter()
+    for f in frames:
+        ref.process_frame(f, 1 / 60)
+    fps_ref = n / (time.perf_counter() - t0)
+    read_launches("[4c] per-frame reference", 0, n)
+    runs = {}
+    for name, extra in (("inline", {}),
+                        ("emit worker", dict(batch_emit_thread=True))):
+        bcfg = dataclasses.replace(cfg, dispatch_batch=BATCH, **extra)
+        eng, payloads = serving_engine(rig, bcfg, Rs, ts, src)
+        for f in frames[:BATCH]:
+            eng.process_frame(f, 1 / 60)
+        eng.handle("triangulate-points", {"startOrStop": "stop"})
+        start_tracking(eng, Rs, ts)
+        payloads.clear()
+        eng.timer = StageTimer()     # time the served batches only
+        reset_launches()
+        t0 = time.perf_counter()
+        for f in frames:
+            eng.process_frame(f, 1 / 60)
+        eng.flush_batches()
+        fps = n / (time.perf_counter() - t0)
+        read_launches(f"[4c] batched {name}", 0, BATCH_ROUNDS)
+        runs[name] = (eng, payloads, fps)
+    runs["emit worker"][0].stop()     # retires the worker thread
+    check(runs["emit worker"][1] == runs["inline"][1],
+          "[4c] emit-worker payloads differ from inline")
+    worst = compare_payloads(runs["inline"][1], ref_payloads,
+                             "[4c] batched vs per-frame")
+    print(f"[4c] Engine(dispatch_batch={BATCH}) over {BATCH_ROUNDS} batches "
+          f"({n} frames, host detection included): inline "
+          f"{runs['inline'][2]:.1f} frames/s, emit worker "
+          f"{runs['emit worker'][2]:.1f} frames/s, bitwise equal to each "
+          f"other; against per-frame host-detect serving of the same "
+          f"frames ({fps_ref:.1f} frames/s): discrete fields equal, "
+          f"max_abs_err {worst}; kalman_bank once a batch")
+    for name, run in runs.items():
+        print(f"[4c] engine stages, {name} (mean ms; batch-ingest a frame, "
+              f"the others a batch): {stage_means(run[0])}")
+    return runs["inline"][0], {k: v[2] for k, v in runs.items()}, fps_ref
+
+
+class WsClient:
+    """A minimal Socket.IO-over-WebSocket client (stdlib and the port's
+    wsproto), as the reference console speaks it."""
+
+    def __init__(self, host, port, timeout=10.0):
+        import socket
+
+        from low_cost_mocap_tpu_torch.runtime import wsproto
+
+        self.wsproto = wsproto
+        self.sock = socket.create_connection((host, port), timeout=timeout)
+        self.parser = wsproto.FrameParser()
+        self.packets = []
+        key = "dGhlIHNhbXBsZSBub25jZQ=="
+        self.sock.sendall(
+            (f"GET /socket.io/?EIO=4&transport=websocket HTTP/1.1\r\n"
+             f"Host: {host}:{port}\r\nUpgrade: websocket\r\n"
+             f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n"
+             f"Sec-WebSocket-Version: 13\r\n\r\n").encode())
+        buf = b""
+        while b"\r\n\r\n" not in buf:
+            buf += self.sock.recv(4096)
+        head, rest = buf.split(b"\r\n\r\n", 1)
+        check(b"101" in head.split(b"\r\n")[0], f"no websocket upgrade: "
+              f"{head[:200]!r}")
+        self._feed(rest)
+
+    def _feed(self, data):
+        self.packets += [p.decode() for op, p in self.parser.feed(data)
+                         if op == 0x1]
+
+    def pump(self, timeout):
+        import socket
+
+        self.sock.settimeout(timeout)
+        try:
+            data = self.sock.recv(1 << 20)
+        except socket.timeout:
+            return
+        check(bool(data), "the server closed the websocket")
+        self._feed(data)
+
+    def wait_packet(self, pred, timeout=10.0):
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            for p in self.packets:
+                if pred(p):
+                    return p
+            self.pump(max(deadline - time.time(), 0.05))
+        fail(f"no matching packet; last: {self.packets[-3:]}")
+
+    def send_text(self, text):
+        self.sock.sendall(self.wsproto.encode_frame(text.encode(),
+                                                    mask=True))
+
+    def emit(self, event, data):
+        self.send_text(self.wsproto.sio_event(event, data))
+
+    def close(self):
+        self.sock.close()
+
+
+def phase_server(rig, cfg, Rs, ts):
+    """[4d] MocapServer on a free localhost port over the default CUDA
+    engine and its capture loop: a websocket client connects, starts
+    triangulation and locating, and counts object-points events that carry
+    filtered_objects."""
+    from low_cost_mocap_tpu_torch.runtime.engine import (
+        Engine, camera_poses_to_serializable)
+    from low_cost_mocap_tpu_torch.runtime.serial_link import CollectingLink
+    from low_cost_mocap_tpu_torch.runtime.server import MocapServer
+    from low_cost_mocap_tpu_torch.runtime.sources import SyntheticSource
+
+    src = SyntheticSource(rig, Rs, ts, num_drones=2, headings=(0.0, np.pi))
+    eng = Engine(rig, cfg, src, CollectingLink(), device=DEVICE)
+    srv = MocapServer(eng, port=0)
+    errors = []
+    eng.on("engine-error", errors.append)
+    reset_launches()
+    srv.start()
+    client = None
+    try:
+        eng.start()
+        client = WsClient("127.0.0.1", srv.port)
+        client.wait_packet(lambda p: p.startswith("0{"))
+        client.send_text("40")
+        client.wait_packet(lambda p: p.startswith("40{"))
+        client.emit("triangulate-points", {
+            "startOrStop": "start",
+            "cameraPoses": camera_poses_to_serializable(Rs, ts),
+            "toWorldCoordsMatrix": np.eye(4).tolist()})
+        client.emit("locate-objects", {"startOrStop": "start"})
+        deadline = time.time() + 120
+        tracked, first = 0, None
+        while tracked < SERVER_EVENTS and time.time() < deadline:
+            client.pump(1.0)
+            while client.packets:
+                evt = client.wsproto.parse_sio_event(client.packets.pop(0))
+                if (evt is not None and evt[0] == "object-points"
+                        and evt[1][0]["filtered_objects"]):
+                    tracked += 1
+                    first = first or time.perf_counter()
+        rate = (tracked - 1) / max(time.perf_counter() - first, 1e-9) \
+            if first else 0.0
+    finally:
+        eng.stop()
+        srv.stop()
+        if client is not None:
+            client.close()
+    check(not errors, f"[4d] engine errors: {errors[:3]}")
+    check(tracked >= SERVER_EVENTS, f"[4d] only {tracked} object-points "
+          f"events with filtered_objects (want {SERVER_EVENTS})")
+    launches = read_launches("[4d] server", 0, None)
+    print(f"[4d] MocapServer on 127.0.0.1:{srv.port} over the CUDA engine: "
+          f"a websocket client received {tracked} object-points events "
+          f"with filtered_objects at {rate:.1f} events/s (capture loop "
+          f"target {cfg.target_fps:.0f} frames/s); kalman_bank "
+          f"{launches[1]} launches, detect_blobs 0")
+    return launches
+
+
+def phase_launcher(Rs, ts):
+    """[4e] ``python -m low_cost_mocap_tpu_torch.serve`` as a user starts
+    it (its defaults: the card, host detection, a synthetic drone, the
+    loopback link), on a free localhost port: a websocket client starts
+    tracking and counts object-points events; the process is stopped."""
+    import socket
+    import tempfile
+
+    from low_cost_mocap_tpu_torch.runtime.engine import \
+        camera_poses_to_serializable
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        log_path = os.path.join(tmp, "serve.log")
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "low_cost_mocap_tpu_torch.serve",
+                 "--port", str(port), "--artifacts-dir", tmp],
+                cwd=here, stdout=log, stderr=subprocess.STDOUT)
+        client = None
+        try:
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 120:
+                check(proc.poll() is None, "the launcher exited:\n"
+                      + open(log_path).read()[-3000:])
+                try:
+                    client = WsClient("127.0.0.1", port)
+                    break
+                except OSError:
+                    time.sleep(0.5)
+            check(client is not None, "the launcher never listened")
+            t_up = time.perf_counter() - t0
+            client.wait_packet(lambda p: p.startswith("0{"))
+            client.send_text("40")
+            client.wait_packet(lambda p: p.startswith("40{"))
+            client.emit("triangulate-points", {
+                "startOrStop": "start",
+                "cameraPoses": camera_poses_to_serializable(Rs, ts)})
+            client.emit("locate-objects", {"startOrStop": "start"})
+            deadline = time.time() + 120
+            tracked = 0
+            while tracked < SERVER_EVENTS and time.time() < deadline:
+                client.pump(1.0)
+                while client.packets:
+                    evt = client.wsproto.parse_sio_event(
+                        client.packets.pop(0))
+                    tracked += bool(evt is not None
+                                    and evt[0] == "object-points"
+                                    and evt[1][0]["filtered_objects"])
+        finally:
+            if client is not None:
+                client.close()
+            proc.terminate()
+            try:
+                proc.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        out = open(log_path).read()
+    check(tracked >= SERVER_EVENTS, f"[4e] only {tracked} object-points "
+          f"events from the launcher:\n{out[-3000:]}")
+    check("device=cuda" in out, f"[4e] the launcher did not run on the "
+          f"card:\n{out[-3000:]}")
+    print(f"[4e] python -m low_cost_mocap_tpu_torch.serve listened after "
+          f"{t_up:.1f} s ({out.strip().splitlines()[0]}); a websocket "
+          f"client received {tracked} object-points events with "
+          "filtered_objects; the process was stopped")
 
 
 def phase_batched(rig, cfg, Rs, ts, src):
@@ -524,23 +963,59 @@ def phase_times(rig, cfg, frames_np, batch, launches, errs):
     ]}
 
 
-def phase_breakdown(eng, src, fps):
-    """Where a served frame's time goes, on frames after the main path's.
-
-    First each stage of ``Engine.process_frame`` on the host clock with a
-    synchronise after it (median over BREAKDOWN_FRAMES).  Then the same
-    frames through ``process_frame`` under ``torch.profiler``: device busy
-    time, kernels and host<->device copies per frame, and the busiest
-    kernels.  The device's idle share is taken against the unprofiled
-    per-frame time of phase 4."""
+def profile_frames(run, n):
+    """Device work of ``run`` (which serves ``n`` frames) under
+    ``torch.profiler``: (busy ms, kernels, host<->device copies) per frame
+    and the device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev_ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev_ev) / 1e3 / n
+    kernels = sum(e.count for e in dev_ev if "emcpy" not in e.key
+                  and "emset" not in e.key) / n
+    copies = sum(e.count for e in dev_ev if "emcpy" in e.key) / n
+    return busy_ms, kernels, copies, dev_ev
+
+
+def print_profile(tag, prof, wall_ms, n, top=8):
+    busy_ms, kernels, copies, dev_ev = prof
+    idle = 1 - busy_ms / wall_ms
+    print(f"{tag} device busy {busy_ms:.3f} ms per frame against "
+          f"{wall_ms:.3f} ms per frame unprofiled (idle share {idle:.3f}); "
+          f"{kernels:.1f} kernels and {copies:.1f} host<->device copies per "
+          "frame")
+    for e in sorted(dev_ev, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"    {e.self_device_time_total / 1e3 / n:8.4f} ms/frame "
+              f"{e.count / n:6.1f}x  {e.key[:90]}")
+    return idle
+
+
+def phase_breakdown(eng, src, fps, eng_hd, fps_hd, eng_b, fps_b):
+    """Where a served frame's time goes, on frames after the main path's.
+
+    For detection on the card (the [4] engine, sparse ingest) and on the
+    host (the [4b] engine): each stage on the host clock with a
+    synchronise after it (median over BREAKDOWN_FRAMES).  Then the same
+    frames through ``process_frame`` under ``torch.profiler``: device busy
+    time, kernels and host<->device copies per frame, and the busiest
+    kernels; and one batch of the [4c] batched engine.  Each idle share is
+    taken against that path's unprofiled time per frame."""
+    import torch
+
+    from low_cost_mocap_tpu_torch.control import bindings
     from low_cost_mocap_tpu_torch.models import pipeline
     from low_cost_mocap_tpu_torch.ops import (camera, correspond, detect,
                                               detect_cuda, rigid, world)
 
     dev, cfg, rig, kw = eng.device, eng.cfg, eng.rig, eng._step_kw
+    C, K, O = rig.num_cameras, cfg.max_blobs, rig.num_objects
+    shape = (C, *rig.image_hw())
     frames = [src.read_at((N_FRAMES + BATCH + i) / 60)
               for i in range(BREAKDOWN_FRAMES)]
     times: dict[str, list] = {}
@@ -552,16 +1027,24 @@ def phase_breakdown(eng, src, fps):
         times.setdefault(name, []).append(time.perf_counter() - t0)
         return out
 
+    def report(tag):
+        med = {k: float(np.median(v)) * 1e3 for k, v in times.items()}
+        print(f"{tag} per-frame stages, synchronised, median of "
+              f"{BREAKDOWN_FRAMES} frames (ms): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+              + f"; sum {sum(med.values()):.3f}")
+        times.clear()
+
     state = eng._kalman_state
     dts = torch.full((1,), 1 / 60, device=dev)
     for f in frames:
-        packed = timed("host threshold+pack",
-                       lambda: detect.pack_frames(f, cfg.detect_threshold))
-        up = timed("upload", lambda: torch.from_numpy(packed).to(dev))
-        blobs, bv, _ = timed("detect (unpack + kernel)",
+        idx, _, _ = timed("host sparse ingest", lambda: detect.sparse_ingest(
+            f, cfg.detect_threshold, cfg.sparse_budget))
+        up = timed("upload", lambda: torch.from_numpy(idx).to(dev))
+        blobs, bv, _ = timed("detect (scatter + kernel)",
                              lambda: detect_cuda.find_blobs(
-                                 detect.unpack_bits(up), 0.5, kw["max_blobs"],
-                                 kw["cc_iters"]))
+                                 detect.scatter_pixels(up, shape), 0.5,
+                                 kw["max_blobs"], kw["cc_iters"]))
         blobs, bv = blobs[None], bv[None]
         bu = timed("undistort", lambda: torch.where(
             bv[..., None], camera.undistort_points(
@@ -580,34 +1063,46 @@ def phase_breakdown(eng, src, fps):
             state, loc, dts, cfg.kalman_report, "auto"))
         timed("pack + readback + decode", lambda: pipeline.unpack_outputs(
             pipeline.pack_outputs(pipeline._batch_outputs(
-                bu, bv, m, pts, loc, tracked))[0].cpu().numpy(),
-            rig.num_cameras, cfg.max_blobs, rig.num_objects))
-    med = {k: float(np.median(v)) * 1e3 for k, v in times.items()}
-    print(f"[7] per-frame stages, synchronised, median of "
-          f"{BREAKDOWN_FRAMES} frames (ms): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
-          + f"; sum {sum(med.values()):.3f}")
+                bu, bv, m, pts, loc, tracked))[0].cpu().numpy(), C, K, O))
+    report("[7] detection on the card:")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for f in frames:
-            eng.process_frame(f, 1 / 60)
-    ev = prof.key_averages()
+    # host detection: the [4b] engine's per-frame stages
+    pinned = torch.zeros((C, K, 3), pin_memory=dev.type == "cuda")
+    cutoff = detect.threshold_cutoff(cfg.detect_threshold)
+    state = eng_hd._kalman_state
+    cal = (eng_hd._Ps, eng_hd._K, eng_hd._dist, eng_hd._M, eng_hd._F)
+    for f in frames:
+        timed("host ingest (detect into pinned)",
+              lambda: bindings.ingest_detect_packed(
+                  f, cutoff, K, out=pinned.numpy()))
+        up = timed("upload", lambda: pinned.to(dev, non_blocking=True))
+        state, out = timed("tail (track_from_blobs)",
+                           lambda: pipeline.track_from_blobs(
+                               state, up[..., :2], up[..., 2] > 0.5,
+                               np.float32(1 / 60), *cal, **eng_hd._tail_kw))
+        timed("pack + readback + decode", lambda: pipeline.unpack_outputs(
+            pipeline.pack_outputs(out).cpu().numpy(), C, K, O))
+    report("[7] detection on the host:")
+
+    def serve(e, fs):
+        def run():
+            for f in fs:
+                e.process_frame(f, 1 / 60)
+        return run
+
     n = len(frames)
-    dev_ev = [e for e in ev if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in dev_ev) / 1e3 / n
-    kernels = sum(e.count for e in dev_ev if "emcpy" not in e.key
-                  and "emset" not in e.key) / n
-    copies = sum(e.count for e in dev_ev if "emcpy" in e.key) / n
-    wall_ms = 1e3 / fps
-    print(f"[7] profiled process_frame: device busy {busy_ms:.3f} ms per "
-          f"frame against {wall_ms:.3f} ms per frame unprofiled (idle share "
-          f"{1 - busy_ms / wall_ms:.3f}); {kernels:.1f} kernels and "
-          f"{copies:.1f} host<->device copies per frame")
-    top = sorted(dev_ev, key=lambda e: -e.self_device_time_total)[:8]
-    for e in top:
-        print(f"    {e.self_device_time_total / 1e3 / n:8.4f} ms/frame "
-              f"{e.count / n:6.1f}x  {e.key[:90]}")
+    idle = {}
+    idle["device detect"] = print_profile(
+        "[7] profiled process_frame, detection on the card:",
+        profile_frames(serve(eng, frames), n), 1e3 / fps, n)
+    idle["host detect"] = print_profile(
+        "[7] profiled process_frame, detection on the host (depth 0):",
+        profile_frames(serve(eng_hd, frames), n), 1e3 / fps_hd, n)
+    batch = [src.read_at((N_FRAMES + i) / 60) for i in range(BATCH)]
+    idle["batched"] = print_profile(
+        f"[7] profiled process_frame, one batch of {BATCH} (inline):",
+        profile_frames(serve(eng_b, batch), BATCH), 1e3 / fps_b, BATCH)
+    return idle
 
 
 def phase_compare(old_root, frames, args, cands, num_objects):
@@ -687,7 +1182,6 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
     from low_cost_mocap_tpu_torch.config import EngineConfig
-    from low_cost_mocap_tpu_torch.ops import detect_cuda, kalman_cuda
     from low_cost_mocap_tpu_torch.utils import synthetic as syn
 
     t_start = time.perf_counter()
@@ -698,23 +1192,44 @@ def main() -> None:
     cfg = EngineConfig()
     frames_np = smoke_frames(rig, Rs, ts, cfg.cc_iters)
     det_err = phase_detect(cfg, frames_np)
+    phase_host_detect(cfg, frames_np)
     bank_err = phase_bank()
 
-    # the main path: per-frame serving, then the batched tail
-    detect_cuda.launches = 0
-    kalman_cuda.launches = 0
+    # the main paths: each is driven with the launch counts set to 0 just
+    # before it and read just after
+    paths = {}
+    reset_launches()
     eng, src, fps = phase_serve(rig, cfg, Rs, ts)
+    paths["[4] per-frame, detection on the card"] = read_launches(
+        "[4]", N_FRAMES, N_FRAMES)
+    eng_hd, fps_hd = phase_host_serve(rig, cfg, Rs, ts, src)
+    paths["[4b] per-frame, host detection, 4 runs"] = (0, 4 * N_FRAMES)
+    eng_b, fps_b, fps_ref = phase_batched_engine(rig, cfg, Rs, ts, src)
+    paths["[4c] batched Engine, per-frame reference + 2 runs"] = (
+        0, BATCH_ROUNDS * BATCH + 2 * BATCH_ROUNDS)
+    paths["[4d] server"] = phase_server(rig, cfg, Rs, ts)
+    phase_launcher(Rs, ts)     # another process: no launches counted here
+    reset_launches()
     batch = phase_batched(rig, cfg, Rs, ts, src)
-    launches = (detect_cuda.launches, kalman_cuda.launches)
-    check(launches[0] == N_FRAMES + BATCH
-          and launches[1] == N_FRAMES + 1 + BATCH,
-          f"main-path launches {launches}")
-    print(f"    main path launches: detect_blobs {launches[0]}, "
-          f"kalman_bank {launches[1]}")
+    paths["[5] batched tail + per-frame checks"] = read_launches(
+        "[5]", BATCH, 1 + BATCH)
+    launches = tuple(int(sum(v[i] for v in paths.values())) for i in (0, 1))
+    for name, (d, k) in paths.items():
+        print(f"    {name}: detect_blobs {d}, kalman_bank {k} launches")
+    print(f"    main paths in all: detect_blobs {launches[0]}, kalman_bank "
+          f"{launches[1]}")
 
     frames, args, cands, report = phase_times(
         rig, cfg, frames_np, batch, launches, (det_err, bank_err))
-    phase_breakdown(eng, src, fps)
+    idle = phase_breakdown(eng, src, fps, eng_hd, fps_hd[0], eng_b,
+                           fps_b["inline"])
+    print("[7] serving paths (frames/s, idle share): "
+          f"device detect {fps:.1f} ({idle['device detect']:.3f}); host "
+          f"detect depth 0 {fps_hd[0]:.1f} ({idle['host detect']:.3f}), "
+          f"depth 2 {fps_hd[2]:.1f}; batched B={BATCH} inline "
+          f"{fps_b['inline']:.1f} ({idle['batched']:.3f}), emit worker "
+          f"{fps_b['emit worker']:.1f}; per-frame host-detect reference "
+          f"{fps_ref:.1f}")
     if opts.compare_with:
         phase_compare(opts.compare_with, frames, args, cands,
                       rig.num_objects)

@@ -12,9 +12,12 @@ batch axis, so per-frame tracking (``track_from_blobs``, B = 1) and batched
 serving (``scan_track_from_blobs``) run the same code and the same bank
 kernel.
 
+Frames come in dense (uint8 or float), as 1-bit packed rows, or as the
+lit pixels' indices (sparse ingest, ``ops.detect.sparse_ingest``).
+
 Not ported yet (they raise ``NotImplementedError``): preprocessing
-(blur + sharpen), sparse ingest, the matcher's per-camera observations
-(``with_obs``) and rigid-body templates.
+(blur + sharpen), the matcher's per-camera observations (``with_obs``) and
+rigid-body templates.
 """
 
 from __future__ import annotations
@@ -57,6 +60,11 @@ def _sizes(C: int, K: int, O: int) -> list:
     N = C * K
     return [C * K * 2, C * K, N * 3, N, N, N * 3, N, N, N, N,
             O * 3, O * 3, O, O]
+
+
+def row_length(num_cameras: int, max_blobs: int, num_objects: int) -> int:
+    """Length L of one frame's packed row (``pack_outputs``)."""
+    return sum(_sizes(num_cameras, max_blobs, num_objects))
 
 
 def unpack_outputs_batch(rows: np.ndarray, num_cameras: int, max_blobs: int,
@@ -214,21 +222,27 @@ def frame_step(state, frames, dt, Ps, K, dist, to_world_matrix, Fs=None, *,
                marker_dist1: float, marker_dist2: float, marker_tol: float,
                marker_side_min: float, do_preprocess: bool,
                packed_input: bool = False, sparse_input: bool = False,
+               image_shape: tuple[int, int, int] | None = None,
                body_template=None, body_sets=None,
                with_obs: bool = False, kalman_report: str = "pre",
                kalman_impl: str = "auto"):
     """One frame: detection, then ``track_from_blobs``.
 
     ``packed_input=True`` takes (C, H, W//8) uint8 bit-packed binary frames
-    (``ops.detect.pack_frames``); otherwise (C, H, W) uint8 or float frames
+    (``ops.detect.pack_frames``); ``sparse_input=True`` takes (budget,)
+    int32 lit-pixel indices (``ops.detect.sparse_ingest``) and needs
+    ``image_shape`` = (C, H, W); otherwise (C, H, W) uint8 or float frames
     thresholded on the device.  Returns (new_state, FrameOutputs).
     """
     if do_preprocess:
         raise NotImplementedError(
             "frame preprocessing (blur + sharpen) is not ported yet")
     if sparse_input:
-        raise NotImplementedError("sparse ingest is not ported yet")
-    if packed_input:
+        if image_shape is None:
+            raise ValueError("sparse_input needs image_shape = (C, H, W)")
+        frames = detect.scatter_pixels(frames, image_shape)
+        eff_threshold = 0.5
+    elif packed_input:
         frames = detect.unpack_bits(frames)
         eff_threshold = 0.5
     else:

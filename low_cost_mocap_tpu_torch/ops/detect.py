@@ -1,8 +1,9 @@
 """Blob detection front-end: threshold -> connected components -> centroids.
 
 Counterpart of ``low_cost_mocap_tpu/ops/detect.py``: host-side
-threshold + 1-bit packing, device-side unpacking, and the plain PyTorch
-detector.  The detector labels each lit pixel with its raster index, runs
+threshold + 1-bit packing and lit-pixel extraction (sparse ingest),
+device-side unpacking and scattering, and the plain PyTorch detector.
+The detector labels each lit pixel with its raster index, runs
 ``cc_iters`` masked 3x3 min-label sweeps (out-of-frame pixels count as
 ``big`` = H*W), takes the first K distinct labels in ascending (raster)
 order and their binary moments.  It is the plain version of the
@@ -41,6 +42,40 @@ def pack_frames(frames_u8: np.ndarray, threshold: float) -> np.ndarray:
         return np.zeros(frames_u8.shape[:-1] + (frames_u8.shape[-1] // 8,),
                         np.uint8)
     return np.packbits(frames_u8 >= cutoff, axis=-1)
+
+
+def sparse_ingest(frames_u8: np.ndarray, threshold: float,
+                  budget: int) -> tuple[np.ndarray, bool, np.ndarray]:
+    """Host-side threshold + lit-pixel index extraction (the sparsest
+    ingest: thresholded mocap frames are almost all dark).
+
+    Returns (idx, ok, packed): idx is (budget,) int32 raster indices of the
+    lit pixels, padded with INT32_MAX (dropped by ``scatter_pixels``); ok is
+    False when more than ``budget`` pixels are lit, and the caller then
+    uploads the dense ``packed`` bitmap, which one packing pass gives too.
+    """
+    from low_cost_mocap_tpu_torch.control.bindings import extract_bits
+
+    packed = pack_frames(frames_u8, threshold)
+    idx, count = extract_bits(packed, budget)
+    return idx, count <= budget, packed
+
+
+def scatter_pixels(idx, shape):
+    """(budget,) lit-pixel indices -> (C, H, W) float32 binary frames.
+
+    The device-side inverse of ``sparse_ingest``: indices outside
+    [0, C*H*W) (the INT32_MAX padding) are dropped.  ``index_put_`` would
+    not drop them, so they are sent to one spare element past the end,
+    without a host synchronisation.  Equal to ``unpack_bits`` of the packed
+    bitmap whenever the budget was not exceeded."""
+    C, H, W = shape
+    n = C * H * W
+    idx = idx.to(torch.int64)
+    idx = torch.where((idx >= 0) & (idx < n), idx, n)
+    flat = torch.zeros(n + 1, dtype=torch.float32, device=idx.device)
+    flat.index_fill_(0, idx, 1.0)
+    return flat[:n].reshape(C, H, W)
 
 
 def unpack_bits(packed):

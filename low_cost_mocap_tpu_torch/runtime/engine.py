@@ -1,174 +1,897 @@
-"""The serving engine of the port, built around ``process_frame``.
+"""The streaming mocap engine of the port: capture loop + event surface.
 
-A slim counterpart of ``low_cost_mocap_tpu/runtime/engine.py``: the mode
-flags (capture / triangulate / locate) and the handlers that set them,
-camera poses and the world matrix as engine state, and per frame
+The port's counterpart of ``low_cost_mocap_tpu/runtime/engine.py``: mode
+flags (capture / triangulate / locate) that select which outputs to emit,
+camera poses and the world matrix as server-side state with persistence
+under ``artifacts_dir``, the reference's Socket.IO event surface, camera
+health, the drone command link, and the capture loop.
 
-    host threshold + 1-bit pack -> ``frame_step`` on the device (detection
-    kernel, geometry, bank kernel) -> one packed row -> host decode ->
-    ``object-points`` event
+Ingest paths, chosen at construction (the JAX engine's choice):
 
-with the JAX engine's ``object-points`` payload.  Detection runs on the
-device: the JAX engine's host detector is native code of that package, so
-batched dispatch (``dispatch_batch > 1``), which needs it, raises here as
-it does there without host detection.  Health monitoring, calibration
-capture and handlers (``image-points``), trajectories, the drone command
-link and the server binding are not ported yet.
+- **host detection** (the default on a CUDA engine): the native detector
+  (``control/native/detect.cc``) turns each frame set into one (C, K, 3)
+  [x, y, valid] tensor, written straight into a page-locked host buffer and
+  uploaded without blocking; the card runs only ``track_from_blobs``, or,
+  with ``EngineConfig.dispatch_batch`` = B > 1, one
+  ``scan_track_from_blobs`` per B frames (the bank kernel once at B);
+- **sparse / packed** (``host_detect=False``): the lit pixels' indices, or
+  the 1-bit bitmap when more than ``sparse_budget`` pixels are lit, go up
+  and the ``detect_blobs`` kernel detects on the card;
+- **dense** (``fast_path=False``): uint8 frames go up whole.
+
+Each step's outputs come back as one packed row per frame.  With
+``readback_pipeline_depth`` = d > 0 the row's copy into a page-locked host
+buffer is issued without blocking, an event is recorded after it, and the
+row is read ``d`` frames (or batches) later, once its event has completed.
+``batch_emit_thread`` hands dispatched batches to a worker thread that
+waits on their events, decodes and emits, and launches nothing on the
+card.
+
+No path changes quietly: a native library that does not build raises, and
+a CPU engine is only ever one the caller asked for (``device="cpu"``).
+
+Not ported yet (their events raise ``NotImplementedError``, which the
+server returns to the client): the calibration handlers, rigid-body
+templates, recording and profiling, and trajectory execution.  Mesh mode
+(camera-sharded serving) raises too.
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
+import os
+import threading
+import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from low_cost_mocap_tpu_torch.config import EngineConfig, RigConfig
+from low_cost_mocap_tpu_torch.control import bindings
 from low_cost_mocap_tpu_torch.device import resolve_device
 from low_cost_mocap_tpu_torch.models.pipeline import (frame_step,
                                                       pack_outputs,
-                                                      unpack_outputs)
+                                                      row_length,
+                                                      scan_track_from_blobs,
+                                                      track_from_blobs,
+                                                      unpack_outputs,
+                                                      unpack_outputs_batch)
 from low_cost_mocap_tpu_torch.ops import camera as cam_ops
 from low_cost_mocap_tpu_torch.ops import correspond, kalman
-from low_cost_mocap_tpu_torch.ops.detect import pack_frames
+from low_cost_mocap_tpu_torch.ops.detect import (sparse_ingest,
+                                                 threshold_cutoff)
+from low_cost_mocap_tpu_torch.runtime.health import CameraHealthMonitor
+from low_cost_mocap_tpu_torch.utils import artifacts
+from low_cost_mocap_tpu_torch.utils.profiling import StageTimer
+
+# reference events whose handlers belong to later slices of the port
+_NOT_PORTED = {
+    "calculate-camera-pose": "calibration",
+    "determine-scale": "calibration",
+    "acquire-floor": "calibration",
+    "set-origin": "calibration",
+    "refine-camera-pose": "calibration",
+    "calibrate-intrinsics": "calibration",
+    "learn-body-template": "rigid-body templates",
+    "record-frames": "recording",
+    "capture-profile": "profiling",
+    "run-trajectory": "trajectory execution",
+}
+
+
+class _HostRing:
+    """A ring of host buffers for copies between the host and the card.
+
+    On a CUDA engine the buffers are page-locked (a ``non_blocking`` copy
+    from or to pageable memory is silently synchronous), and each slot has
+    an event recorded after the last copy that used it.  ``acquire`` waits
+    for that event before the host touches the buffer again: a pinned
+    buffer rewritten under an upload still in flight corrupts that frame
+    without any error.  On a CPU engine the buffers are plain tensors and
+    every copy completes at once."""
+
+    def __init__(self, n: int, shape, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.bufs = [torch.zeros(shape, dtype=torch.float32,
+                                 pin_memory=self.cuda) for _ in range(n)]
+        if self.cuda and not all(b.is_pinned() for b in self.bufs):
+            raise RuntimeError("host buffers are not page-locked")
+        self.events = ([torch.cuda.Event() for _ in range(n)]
+                       if self.cuda else None)
+        self._next = 0
+
+    def acquire(self) -> int:
+        """The next slot, once the copy that last used it has completed."""
+        i = self._next
+        self._next = (i + 1) % len(self.bufs)
+        self.wait(i)
+        return i
+
+    def fence(self, i: int) -> None:
+        """Record slot i's event after the copy just enqueued."""
+        if self.cuda:
+            self.events[i].record()
+
+    def wait(self, i: int) -> None:
+        if self.cuda:
+            self.events[i].synchronize()
 
 
 class Engine:
-    def __init__(self, rig: RigConfig, cfg: EngineConfig, device=None):
-        """``device``: where the tracking step runs — CUDA by default (raises
-        without it); ``"cpu"`` runs the plain PyTorch versions of the
-        kernels."""
+    def __init__(self, rig: RigConfig, cfg: EngineConfig, source, link,
+                 fast_path: bool | None = None,
+                 host_detect: bool | None = None,
+                 artifacts_dir: str | None = None, device=None, mesh=None):
+        """``device``: where the tracking step runs — CUDA by default
+        (raises without it); ``"cpu"`` runs the plain versions of the
+        kernels.
+
+        ``fast_path`` (default: on for a CUDA engine, or when host detection
+        is asked for): 1-bit / sparse ingest; off means dense uint8 frames.
+        ``host_detect`` (default: the fast path) detects blobs on the host
+        with the native library, which must build.  ``dispatch_batch > 1``
+        needs host detection.  ``mesh`` (camera-sharded serving) is not
+        ported yet."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh mode (camera-sharded serving) is not ported yet")
         rig.body_sets_resolved()   # raises for rigid-body templates
-        if cfg.dispatch_batch > 1:
+        self.device = resolve_device(device)
+        if fast_path is None:
+            fast_path = self.device.type == "cuda" or bool(host_detect)
+        if host_detect is None:
+            host_detect = fast_path
+        if host_detect and not fast_path:
+            raise ValueError("host_detect is an ingest of the fast path; "
+                             "fast_path=False asks for dense frames")
+        self._fast = bool(fast_path)
+        self._host_detect = bool(host_detect)
+        if self._host_detect:
+            bindings.get_lib()     # a failed build raises here
+        self._batch = max(int(cfg.dispatch_batch), 1)
+        if self._batch > 1 and not self._host_detect:
             raise ValueError(
                 "dispatch_batch > 1 requires the host-detect ingest path "
-                "(native detector + fast path) or mesh mode: the batched "
-                "program runs pre-detected (or per-shard-detected) blobs "
-                "through scan_track_from_blobs")
+                "(native detector + fast path): the batched program runs "
+                "pre-detected blobs through scan_track_from_blobs")
+
         self.rig = rig
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.source = source
+        self.link = link
+        if hasattr(link, "on_health"):
+            # command-link health (PyserialLink): a ``link-health`` event,
+            # and a stall disarms the local arm mirror (the firmware's 2 s
+            # ping failsafe has cut the motors by then).  Chained after a
+            # caller-installed callback.
+            prev_cb = link.on_health
+
+            def _chained(health, _prev=prev_cb):
+                self._on_link_health(health)
+                if _prev is not None:
+                    _prev(health)
+
+            link.on_health = _chained
+
         self.is_capturing_points = False
         self.is_triangulating_points = False
         self.is_locating_objects = False
         self.camera_poses: tuple[np.ndarray, np.ndarray] | None = None
-        self._listeners: dict[str, list[Callable[[Any], None]]] = {}
+        self.to_world_matrix = np.eye(4, dtype=np.float32)
+        self.drone_armed = [False] * rig.num_objects
+        self.captured_points: list = []
+        self.artifacts_dir = artifacts_dir
+        if artifacts_dir:
+            # persisted intrinsics replace the rig's before K is built
+            self.rig = rig = self._load_intrinsics_artifact(rig)
+
+        # _model_lock guards the step's state (calibration tensors, the
+        # Kalman state, the pending readbacks and the batch being filled)
+        # against server threads swapping it while the capture loop steps;
+        # _frame_lock guards the frames and outputs the stream displays
+        self._model_lock = threading.Lock()
+        self._frame_lock = threading.Lock()
+        self._batch_cond = threading.Condition(self._model_lock)
 
         dev = self.device
         self._K = torch.as_tensor(rig.K_stack(), device=dev)
         self._dist = torch.as_tensor(rig.dist_stack(), device=dev)
         self._Ps = torch.eye(3, 4, device=dev).repeat(rig.num_cameras, 1, 1)
         self._F = correspond._pairwise_fundamentals(self._Ps)
-        self.set_to_world_matrix(np.eye(4, dtype=np.float32))
+        self._F_np = None          # host copy for the epiline overlay
+        self._F_np_src = None
+        self._M = torch.as_tensor(self.to_world_matrix, device=dev)
         self._kalman_state = kalman.init_state(rig.num_objects, device=dev)
-        self._step_kw = dict(
-            threshold=cfg.detect_threshold, max_blobs=cfg.max_blobs,
-            cc_iters=cfg.cc_iters, gate_px=cfg.epipolar_gate_px,
+        if artifacts_dir:
+            self._load_calibration_artifact()   # resume the calibration
+
+        self._tail_kw = dict(
+            gate_px=cfg.epipolar_gate_px,
             max_candidates=cfg.max_candidates_per_cam,
             marker_dist1=rig.marker_dist_short,
             marker_dist2=rig.marker_dist_long,
             marker_tol=rig.marker_dist_tol,
             marker_side_min=rig.marker_side_min,
-            do_preprocess=False, packed_input=True,
             kalman_report=cfg.kalman_report)
+        self._step_kw = dict(threshold=cfg.detect_threshold,
+                             max_blobs=cfg.max_blobs, cc_iters=cfg.cc_iters,
+                             do_preprocess=False, **self._tail_kw)
+        self._cutoff = threshold_cutoff(cfg.detect_threshold)
+        C, K, O = rig.num_cameras, cfg.max_blobs, rig.num_objects
+        self._layout = (C, K, O)
+        # host buffers: host-detect ingest (one frame set, or two batches
+        # so one fills while the other's upload may be in flight) and
+        # readback rows; the row ring outlasts the deepest pipeline plus
+        # the emit worker's backlog
+        self._ingest_ring = None
+        if self._batch > 1:
+            self._ingest_ring = _HostRing(2, (self._batch, C, K, 3), dev)
+            rows_shape = (self._batch, row_length(C, K, O))
+        else:
+            if self._host_detect:
+                self._ingest_ring = _HostRing(4, (C, K, 3), dev)
+            rows_shape = (row_length(C, K, O),)
+        self._row_ring = _HostRing(max(cfg.readback_pipeline_depth, 4) + 2,
+                                   rows_shape, dev)
+        self._pending: collections.deque = collections.deque()
+        self._batch_slot: int | None = None    # ingest slot being filled
+        self._batch_dts: list = []
+        self._batch_pending: collections.deque = collections.deque()
+
+        self.timer = StageTimer()
+        self._listeners: dict[str, list[Callable[[Any], None]]] = {}
+        self._thread: threading.Thread | None = None
+        self._running = False
+        self._last_frames: np.ndarray | None = None
+        self._last_out = None
+        self._emit_worker: threading.Thread | None = None
+        self._emit_worker_busy = False
+        if cfg.batch_emit_thread and self._batch > 1:
+            self._start_emit_worker()
+        self.fps = 0.0
+        self.frame_count = 0
+        self.health = (CameraHealthMonitor(
+            rig.num_cameras, freeze_frames=cfg.health_freeze_frames,
+            dark_frames=cfg.health_dark_frames,
+            interval=cfg.health_interval)
+            if cfg.health_enabled else None)
 
     # ------------------------------------------------------------ events
 
     def on(self, event: str, cb: Callable[[Any], None]) -> None:
         self._listeners.setdefault(event, []).append(cb)
 
+    def off(self, event: str, cb: Callable[[Any], None]) -> None:
+        """Remove a listener added with ``on`` (an unknown cb is a no-op).
+        The server detaches its fan-out while no client is connected, which
+        gates payload construction off (``_emit_frame_outputs``)."""
+        cbs = self._listeners.get(event)
+        if cbs is not None:
+            try:
+                cbs.remove(cb)
+            except ValueError:
+                pass
+
     def emit(self, event: str, data: Any) -> None:
+        # a snapshot: server threads attach and detach listeners while the
+        # capture loop emits
         for cb in tuple(self._listeners.get(event, ())):
             cb(data)
 
+    # ---------------------------------------------------- client handlers
+    # One method per reference Socket.IO event.
+
     def handle(self, event: str, data: Any) -> None:
+        if event in _NOT_PORTED:
+            raise NotImplementedError(
+                f"event {event!r} ({_NOT_PORTED[event]}) is not ported to "
+                "the PyTorch engine yet")
         fn = getattr(self, "handle_" + event.replace("-", "_"), None)
         if fn is None:
             raise KeyError(f"unknown event {event!r}")
         fn(data if data is not None else {})
 
+    def handle_update_camera_settings(self, data):
+        # computer_code/api/index.py:212-216
+        self.source.set_settings(data["exposure"], data["gain"])
+
+    def handle_capture_points(self, data):
+        # computer_code/api/index.py:218-227
+        if data["startOrStop"] == "start":
+            self.captured_points = []
+            self.is_capturing_points = True
+        else:
+            self.flush_batches()   # emit in-flight pipelined outputs
+            self.is_capturing_points = False
+
     def handle_locate_objects(self, data):
+        # computer_code/api/index.py:279-288
         self.is_locating_objects = data["startOrStop"] == "start"
 
     def handle_triangulate_points(self, data):
+        # computer_code/api/index.py:312-323
         if data["startOrStop"] == "start":
             Rs, ts = serializable_to_camera_poses(data["cameraPoses"])
             self.set_camera_poses(Rs, ts)
             if data.get("toWorldCoordsMatrix") is not None:
                 self.set_to_world_matrix(
                     np.asarray(data["toWorldCoordsMatrix"], np.float32))
-            self._kalman_state = kalman.init_state(self.rig.num_objects,
-                                                   device=self.device)
+            state = kalman.init_state(self.rig.num_objects,
+                                      device=self.device)
+            with self._model_lock:
+                self._kalman_state = state
+                self._pending.clear()      # pre-reset in-flight readbacks
+                self._batch_slot = None    # pre-reset buffered frames
+                self._batch_dts = []
+                self._batch_pending.clear()
             self.is_capturing_points = True
             self.is_triangulating_points = True
         else:
+            # emit in-flight pipelined outputs BEFORE dropping the mode
+            # flags, so the stream ends complete
+            self.flush_batches()
             self.is_capturing_points = False
             self.is_triangulating_points = False
+
+    def handle_arm_drone(self, data):
+        # computer_code/api/index.py:114-128
+        self.drone_armed = list(data["droneArmed"])
+        for i in range(self.rig.num_objects):
+            self.link.send(i, {"armed": bool(self.drone_armed[i])})
+
+    def handle_set_drone_pid(self, data):
+        # computer_code/api/index.py:130-137
+        self.link.send(int(data["droneIndex"]),
+                       {"pid": [float(x) for x in data["dronePID"]]})
+
+    def handle_set_drone_setpoint(self, data):
+        # computer_code/api/index.py:139-146
+        self.link.send(int(data["droneIndex"]),
+                       {"setpoint": [float(x)
+                                     for x in data["droneSetpoint"]]})
+
+    def handle_set_drone_trim(self, data):
+        # computer_code/api/index.py:148-155
+        self.link.send(int(data["droneIndex"]),
+                       {"trim": [int(x) for x in data["droneTrim"]]})
+
+    def _on_link_health(self, health: dict) -> None:
+        if health.get("state") == "stalled" and any(self.drone_armed):
+            self.drone_armed = [False] * len(self.drone_armed)
+            health = dict(health, disarmed=True)
+        self.emit("link-health", health)
 
     # ------------------------------------------------------------- state
 
     def set_camera_poses(self, Rs: np.ndarray, ts: np.ndarray) -> None:
-        self.camera_poses = (Rs, ts)
-        self._Ps = cam_ops.projection_matrix(
+        Ps = cam_ops.projection_matrix(
             self._K, torch.as_tensor(np.asarray(Rs, np.float32),
                                      device=self.device),
             torch.as_tensor(np.asarray(ts, np.float32), device=self.device))
         # the pairwise fundamentals change only with the calibration
-        self._F = correspond._pairwise_fundamentals(self._Ps)
+        F = correspond._pairwise_fundamentals(Ps)
+        with self._model_lock:
+            self.camera_poses = (Rs, ts)
+            self._Ps, self._F = Ps, F
+        self._save_calibration_artifact()
 
     def set_to_world_matrix(self, M: np.ndarray) -> None:
-        self.to_world_matrix = np.asarray(M, np.float32)
-        self._M = torch.as_tensor(self.to_world_matrix, device=self.device)
+        M = np.asarray(M, np.float32)
+        M_dev = torch.as_tensor(M, device=self.device)
+        with self._model_lock:
+            self.to_world_matrix = M
+            self._M = M_dev
+        self._save_calibration_artifact()
+
+    def _save_calibration_artifact(self) -> None:
+        """Persist the calibration server-side (the reference keeps the
+        extrinsics and world matrix as browser state only)."""
+        if not self.artifacts_dir or self.camera_poses is None:
+            return
+        os.makedirs(self.artifacts_dir, exist_ok=True)
+        Rs, ts = self.camera_poses
+        artifacts.save_calibration(
+            os.path.join(self.artifacts_dir, "calibration.json"),
+            artifacts.Calibration(Rs=np.asarray(Rs), ts=np.asarray(ts),
+                                  focals=None,
+                                  to_world_matrix=self.to_world_matrix))
+
+    def _load_calibration_artifact(self) -> None:
+        path = os.path.join(self.artifacts_dir, "calibration.json")
+        if not os.path.exists(path):
+            return
+        calib = artifacts.load_calibration(path)
+        self.set_camera_poses(calib.Rs, calib.ts)
+        self.set_to_world_matrix(calib.to_world_matrix)
+
+    def _load_intrinsics_artifact(self, rig: RigConfig) -> RigConfig:
+        path = os.path.join(self.artifacts_dir, "intrinsics.json")
+        if not os.path.exists(path):
+            return rig
+        cams = artifacts.load_intrinsics(path)
+        if len(cams) != rig.num_cameras:
+            return rig                      # stale artifact, rig changed
+        return dataclasses.replace(rig, cameras=cams)
+
+    # -------------------------------------------------------------- loop
+
+    def _start_emit_worker(self) -> None:
+        self._emit_worker = threading.Thread(
+            target=self._emit_worker_loop, daemon=True,
+            name="lcm-batch-emit")
+        self._emit_worker.start()
+
+    def start(self) -> None:
+        if self._running:
+            return
+        if (self.cfg.batch_emit_thread and self._batch > 1
+                and self._emit_worker is None):
+            self._start_emit_worker()   # again after a stop()
+        self._running = True
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._running = False
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+        self.flush_batches()
+        worker = self._emit_worker
+        if worker is not None:
+            with self._batch_cond:
+                self._emit_worker = None    # the worker exits once drained
+                self._batch_cond.notify_all()
+            worker.join(timeout=5)
+
+    def flush_batches(self) -> None:
+        """Decode and emit, in order, every output whose readback is still
+        pending (pipelined batches, and pipelined per-frame rows), so the
+        output stream is complete.  Called at ``stop()`` and when capture
+        stops.  Frames still filling a batch are not dispatched: batched
+        mode emits whole batches only.  With the emit worker this waits for
+        the worker to drain instead."""
+        if self._emit_worker is not None:
+            with self._batch_cond:
+                while self._batch_pending or self._emit_worker_busy:
+                    self._batch_cond.wait(timeout=0.1)
+            return
+        while True:
+            with self._model_lock:
+                if self._batch_pending:
+                    with self.timer.stage("batch-decode"):
+                        outs = self._decode_batch(
+                            self._batch_pending.popleft())
+                elif self._pending:
+                    outs = [unpack_outputs(
+                        self._harvest(self._pending.popleft()),
+                        *self._layout)]
+                else:
+                    return
+            with self.timer.stage("batch-emit"):
+                self._emit_batch_outs(outs)
+
+    def _emit_worker_loop(self) -> None:
+        """batch_emit_thread worker: pop dispatched batches in order, wait
+        for their readback event, decode and emit — off the capture loop,
+        and without launching anything on the card."""
+        while True:
+            with self._batch_cond:
+                while not self._batch_pending:
+                    if self._emit_worker is None:   # stop() requested
+                        return
+                    self._batch_cond.wait(timeout=0.2)
+                item = self._batch_pending.popleft()
+                self._emit_worker_busy = True
+                self._batch_cond.notify_all()       # release backpressure
+            try:
+                with self.timer.stage("batch-decode"):
+                    outs = self._decode_batch(item)
+                with self.timer.stage("batch-emit"):
+                    self._emit_batch_outs(outs)
+            except Exception as e:   # a bad batch must not wedge the drain
+                self.emit("engine-error",
+                          {"error": f"batch emit worker: {e}"})
+            finally:
+                with self._batch_cond:
+                    self._emit_worker_busy = False
+                    self._batch_cond.notify_all()   # flush_batches waiters
+
+    def _loop(self) -> None:
+        interval = 1.0 / self.cfg.target_fps
+        last = time.monotonic()
+        consecutive_errors = 0
+        while self._running:
+            now = time.monotonic()
+            if now - last < interval:
+                time.sleep(last + interval - now)
+            dt = max(time.monotonic() - last, 1e-4)
+            last = time.monotonic()
+            try:
+                with self.timer.stage("read"):
+                    frames = self.source.read()
+                with self.timer.stage("process"):
+                    self.process_frame(frames, dt)
+                consecutive_errors = 0
+            except Exception as e:
+                # a camera hiccup or a transient device error must not kill
+                # the capture loop
+                consecutive_errors += 1
+                self.emit("engine-error",
+                          {"error": str(e), "count": consecutive_errors})
+                if consecutive_errors >= 50:
+                    self.emit("engine-error",
+                              {"error": "too many consecutive failures; "
+                                        "stopping capture", "fatal": True})
+                    self.is_capturing_points = False
+                    consecutive_errors = 0
+                time.sleep(0.05)
+                continue
+            self.frame_count += 1
+            self.fps = 0.9 * self.fps + 0.1 * (1.0 / dt)
+            if self.frame_count % 10 == 0:
+                self.emit("fps", {"fps": round(self.fps)})
+            if self.frame_count % 120 == 0:
+                self.emit("metrics", self.timer.summary())
 
     # -------------------------------------------------------------- frames
 
+    def _upload(self, host: torch.Tensor) -> torch.Tensor:
+        """A host ring buffer's contents on the engine's device: a copy
+        that does not block from page-locked memory, or a plain copy on a
+        CPU engine (never the ring buffer itself)."""
+        if self.device.type == "cuda":
+            return host.to(self.device, non_blocking=True)
+        return host.clone()
+
+    def _readback(self, rows: torch.Tensor) -> int:
+        """Enqueue the copy of a packed row (or (B, L) rows) into the next
+        host slot, with its event after it; returns the slot."""
+        i = self._row_ring.acquire()
+        self._row_ring.bufs[i].copy_(rows, non_blocking=True)
+        self._row_ring.fence(i)
+        return i
+
+    def _harvest(self, slot: int) -> np.ndarray:
+        """The rows of a readback slot, once its event has completed (a
+        copy: the slot is reused)."""
+        self._row_ring.wait(slot)
+        return self._row_ring.bufs[slot].numpy().copy()
+
+    def _ingest_host_detect(self, frames: np.ndarray, slot: int,
+                            index=()) -> None:
+        """Native threshold + pack + connected components straight into an
+        ingest slot (row ``index`` of a batch slot)."""
+        buf = self._ingest_ring.bufs[slot][index]
+        bindings.ingest_detect_packed(
+            frames, self._cutoff, self.cfg.max_blobs,
+            weighted=self.cfg.weighted_centroids, out=buf.numpy())
+
     def process_frame(self, frames: np.ndarray, dt: float):
-        """One frame set — (C, H, W) uint8 — through the tracking step and
-        the reference-shaped emits.  Returns the decoded FrameOutputs (numpy
-        leaves), or None while not capturing."""
+        """One (C, H, W) uint8 frame set through the step and the
+        reference-shaped emits.  Returns the decoded FrameOutputs (numpy
+        leaves) of the newest frame whose readback completed, or None while
+        not capturing, while a batch fills, or while the pipeline fills."""
+        with self._frame_lock:
+            self._last_frames = frames
+
+        if self.health is not None:
+            # frozen-transport detection on the raw stream; a frozen camera
+            # is masked below and rejoins when its frames move again
+            for cam, status in self.health.update(frames):
+                self.emit("camera-health",
+                          {"camera": int(cam), "status": status})
+
         if not self.is_capturing_points:
             return None
-        packed = torch.from_numpy(
-            pack_frames(frames, self.cfg.detect_threshold)).to(self.device)
-        self._kalman_state, out = frame_step(
-            self._kalman_state, packed, np.float32(dt), self._Ps, self._K,
-            self._dist, self._M, self._F, **self._step_kw)
-        row = pack_outputs(out).cpu().numpy()   # one device->host transfer
-        out = unpack_outputs(row, self.rig.num_cameras, self.cfg.max_blobs,
-                             self.rig.num_objects)
+
+        if self.health is not None:
+            frozen = self.health.frozen_mask
+            if frozen.any():
+                # a copy, never the source's buffer (RecordedSource returns
+                # views of its array); zeroed frames give no blobs on every
+                # ingest path
+                frames = frames.copy()
+                frames[frozen] = 0
+
+        dt32 = np.float32(dt)
+        if self._host_detect and self._batch > 1:
+            return self._run_batched(frames, dt32)
+
+        dev = self.device
+        with self.timer.stage("ingest"):
+            if self._host_detect:
+                slot = self._ingest_ring.acquire()
+                self._ingest_host_detect(frames, slot)
+                payload = self._upload(self._ingest_ring.bufs[slot])
+                self._ingest_ring.fence(slot)
+                kind = "blobs"
+            elif self._fast:
+                idx, ok, packed = sparse_ingest(
+                    frames, self.cfg.detect_threshold, self.cfg.sparse_budget)
+                # the dense 1-bit bitmap is exact when the budget overflows
+                kind = "sparse" if ok else "packed"
+                payload = torch.from_numpy(idx if ok else packed).to(dev)
+            else:
+                kind = "dense"
+                payload = torch.from_numpy(np.ascontiguousarray(frames)).to(
+                    dev)
+
+        with self._model_lock:
+            with self.timer.stage("step"):
+                self._kalman_state, out = self._step(kind, payload, dt32)
+                slot = self._readback(pack_outputs(out))
+            depth = self.cfg.readback_pipeline_depth
+            if depth > 0:
+                self._pending.append(slot)
+                if len(self._pending) <= depth:
+                    return None
+                slot = self._pending.popleft()
+            with self.timer.stage("readback"):
+                out = unpack_outputs(self._harvest(slot), *self._layout)
+
         self._emit_frame_outputs(out)
+        with self._frame_lock:
+            self._last_out = out
         return out
 
+    def _step(self, kind: str, payload: torch.Tensor, dt32):
+        """One frame's step on the device (under the model lock)."""
+        cal = (self._Ps, self._K, self._dist, self._M, self._F)
+        if kind == "blobs":
+            return track_from_blobs(
+                self._kalman_state, payload[..., :2], payload[..., 2] > 0.5,
+                dt32, *cal, **self._tail_kw)
+        ingest = {"sparse": dict(sparse_input=True,
+                                 image_shape=(self.rig.num_cameras,
+                                              *self.rig.image_hw())),
+                  "packed": dict(packed_input=True),
+                  "dense": {}}[kind]
+        return frame_step(self._kalman_state, payload, dt32, *cal,
+                          **self._step_kw, **ingest)
+
+    def _run_batched(self, frames: np.ndarray, dt32):
+        """Batched dispatch: each frame's host detection goes into slot i
+        of a page-locked (B, C, K, 3) buffer; every ``dispatch_batch``
+        frames, one upload and one ``scan_track_from_blobs`` (the bank
+        kernel once at B), one (B, L) readback, pipelined like the
+        per-frame rows.  Returns the newest frame's outputs, or None while
+        the batch (or the pipeline) fills."""
+        with self._model_lock:
+            with self.timer.stage("batch-ingest"):
+                if self._batch_slot is None:
+                    self._batch_slot = self._ingest_ring.acquire()
+                self._ingest_host_detect(frames, self._batch_slot,
+                                         len(self._batch_dts))
+                self._batch_dts.append(dt32)
+            if len(self._batch_dts) < self._batch:
+                return None
+            slot, dl = self._batch_slot, np.asarray(self._batch_dts,
+                                                    np.float32)
+            self._batch_slot, self._batch_dts = None, []
+            with self.timer.stage("batch-dispatch"):
+                blobs = self._upload(self._ingest_ring.bufs[slot])
+                self._ingest_ring.fence(slot)
+                self._kalman_state, rows = scan_track_from_blobs(
+                    self._kalman_state, blobs[..., :2], blobs[..., 2] > 0.5,
+                    dl, self._Ps, self._K, self._dist, self._M, self._F,
+                    **self._tail_kw)
+                # the row layout is snapshotted with the rows it describes
+                item = (self._readback(rows), self._layout)
+            if self._emit_worker is not None:
+                # the worker waits for the readback, decodes and emits;
+                # the capture loop never blocks on a readback
+                self._batch_pending.append(item)
+                self._batch_cond.notify_all()
+                cap = max(self.cfg.readback_pipeline_depth, 4)
+                while len(self._batch_pending) > cap:   # backpressure
+                    self._batch_cond.wait(timeout=1.0)
+                return None
+            # readback_pipeline_depth > 0: the host decodes batch N - depth
+            # while the card computes batch N (depth * B frames of latency)
+            depth = self.cfg.readback_pipeline_depth
+            if depth > 0:
+                self._batch_pending.append(item)
+                if len(self._batch_pending) <= depth:
+                    return None
+                item = self._batch_pending.popleft()
+            with self.timer.stage("batch-decode"):
+                outs = self._decode_batch(item)
+        with self.timer.stage("batch-emit"):
+            return self._emit_batch_outs(outs)
+
+    def _decode_batch(self, item) -> list:
+        slot, layout = item
+        return unpack_outputs_batch(self._harvest(slot), *layout)
+
+    def _emit_batch_outs(self, outs: list):
+        """Emit outputs in frame order (outside the model lock) and return
+        the newest."""
+        for o in outs:
+            self._emit_frame_outputs(o)
+        with self._frame_lock:
+            self._last_out = outs[-1]
+        return outs[-1]
+
     def _emit_frame_outputs(self, out) -> None:
-        """The reference's ``object-points`` emit while triangulating."""
-        if not (self.is_triangulating_points
-                and self._listeners.get("object-points")):
-            return
-        objects, filtered = [], []
-        if self.is_locating_objects:
-            o = out.objects
-            for i in np.where(o.valid)[0]:
-                objects.append({
-                    "pos": o.pos[i].tolist(),
-                    "heading": float(o.heading[i]),
-                    "error": float(o.error[i]),
-                    "droneIndex": int(o.index[i]),
-                })
-            tr = out.tracked
-            for d in np.where(tr.valid)[0]:
-                filtered.append({
-                    "pos": tr.pos[d].tolist(),
-                    "vel": tr.vel[d].tolist(),
-                    "heading": float(tr.heading[d]),
-                    "droneIndex": int(d),
-                })
-        pv = out.point_valid
-        self.emit("object-points", {
-            "object_points": out.object_points[pv].tolist(),
-            "errors": out.point_errors[pv].tolist(),
-            "objects": objects,
-            "filtered_objects": filtered,
-        })
+        """Per-frame fan-out: health counters, the mode-gated reference
+        emits (image-points / object-points), the armed drones' pose feed.
+        Shared by the per-frame and batched paths."""
+        if self.health is not None:
+            counts = np.asarray(out.blob_valid).sum(axis=1)
+            for cam, status in self.health.update_blobs(counts):
+                self.emit("camera-health",
+                          {"camera": int(cam), "status": status})
+
+        if self.is_capturing_points and not self.is_triangulating_points:
+            # first blob per camera, [None, None] when absent
+            # (computer_code/api/helpers.py:91-92)
+            blobs, valid = out.blob_px, out.blob_valid
+            image_points = [
+                blobs[c, 0].tolist() if valid[c, 0] else [None, None]
+                for c in range(self.rig.num_cameras)]
+            if any(v[0] is not None for v in image_points):
+                self.captured_points.append(image_points)
+                self.emit("image-points", image_points)
+        elif self.is_triangulating_points:
+            # payloads are built only for listeners; the armed pose feed
+            # runs at full rate regardless
+            want_payload = bool(self._listeners.get("object-points"))
+            objects, filtered = [], []
+            if self.is_locating_objects:
+                o = out.objects
+                if want_payload:
+                    for i in np.where(o.valid)[0]:
+                        objects.append({
+                            "pos": o.pos[i].tolist(),
+                            "heading": float(o.heading[i]),
+                            "error": float(o.error[i]),
+                            "droneIndex": int(o.index[i]),
+                        })
+                tr = out.tracked
+                for d in np.where(tr.valid)[0]:
+                    armed = self.drone_armed[d]
+                    if not (want_payload or armed):
+                        continue
+                    pos, vel = tr.pos[d], tr.vel[d]
+                    heading = float(tr.heading[d])
+                    if want_payload:
+                        filtered.append({
+                            "pos": pos.tolist(),
+                            "vel": vel.tolist(),
+                            "heading": heading,
+                            "droneIndex": int(d),
+                        })
+                    if armed:
+                        # pose + velocity feed (computer_code/api/
+                        # helpers.py:113-122).  The engine's world frame is
+                        # [x, up, z]; the firmware reads pos[2] as altitude,
+                        # so send [x, z, up].
+                        self.link.send(int(d), {
+                            "pos": [round(float(pos[0]), 4),
+                                    round(float(pos[2]), 4),
+                                    round(float(pos[1]), 4),
+                                    round(heading, 4)],
+                            "vel": [round(float(vel[0]), 4),
+                                    round(float(vel[2]), 4),
+                                    round(float(vel[1]), 4)],
+                        })
+            if not want_payload:
+                return
+            pv = out.point_valid
+            self.emit("object-points", {
+                "object_points": out.object_points[pv].tolist(),
+                "errors": out.point_errors[pv].tolist(),
+                "objects": objects,
+                "filtered_objects": filtered,
+            })
+
+    # ------------------------------------------------------------ frames
+
+    def latest_frame_strip(self) -> np.ndarray | None:
+        """(H, C*W) uint8 montage for the MJPEG stream
+        (``computer_code/api/helpers.py:137-141``): detected blobs marked
+        with a crosshair, a box and their pixel coordinates, and, while
+        triangulating, each blob's epipolar line in the later cameras."""
+        with self._frame_lock:
+            if self._last_frames is None:
+                return None
+            frames = self._last_frames
+            out = self._last_out
+        strip = np.hstack(list(frames)).copy()
+        if out is not None and self.is_capturing_points:
+            H, W = frames.shape[1], frames.shape[2]
+            blobs, bvalid = out.blob_px, out.blob_valid
+            for c in range(frames.shape[0]):
+                for k in np.where(bvalid[c])[0]:
+                    bx, by = blobs[c, k, 0], blobs[c, k, 1]
+                    x = int(np.clip(bx, 0, W - 1)) + c * W
+                    y = int(np.clip(by, 0, H - 1))
+                    x0, x1 = max(x - 4, 0), min(x + 5, strip.shape[1])
+                    y0, y1 = max(y - 4, 0), min(y + 5, H)
+                    strip[y, x0:x1] = 255   # crosshair
+                    strip[y0:y1, x] = 255
+                    strip[y0:y1, x0] = 255  # box at the blob boundary
+                    strip[y0:y1, x1 - 1] = 255
+                    strip[y0, x0:x1] = 255
+                    strip[y1 - 1, x0:x1] = 255
+                    _draw_text(strip, x + 6, y - 6, f"{bx:.0f},{by:.0f}")
+            if self.is_triangulating_points:
+                F = self._F
+                if self._F_np_src is not F:
+                    # one device readback per pose set, not per frame
+                    self._F_np = F.cpu().numpy()
+                    self._F_np_src = F
+                C = frames.shape[0]
+                for b in range(1, C):
+                    for a in range(b):
+                        for k in np.where(bvalid[a])[0]:
+                            ph = np.array([blobs[a, k, 0], blobs[a, k, 1],
+                                           1.0])
+                            _draw_epiline(strip, self._F_np[a, b] @ ph,
+                                          b * W, W, H)
+        return strip
+
+
+# 3x5 bitmap glyphs for the stream's coordinate labels (digits, ',' '-'
+# '.'), row-major bits
+_GLYPHS = {
+    "0": 0b111101101101111, "1": 0b010110010010111, "2": 0b111001111100111,
+    "3": 0b111001111001111, "4": 0b101101111001001, "5": 0b111100111001111,
+    "6": 0b111100111101111, "7": 0b111001010010010, "8": 0b111101111101111,
+    "9": 0b111101111001111, ",": 0b000000010010100, "-": 0b000000111000000,
+    ".": 0b000000000000010,
+}
+
+
+def _draw_text(img: np.ndarray, x: int, y: int, text: str,
+               value: int = 255) -> None:
+    """Render 3x5 bitmap text into a grayscale image in place (clipped)."""
+    H, W = img.shape
+    for ch in text:
+        bits = _GLYPHS.get(ch)
+        if bits is None:
+            x += 4
+            continue
+        for r in range(5):
+            for col in range(3):
+                if bits >> (14 - r * 3 - col) & 1:
+                    yy, xx = y + r, x + col
+                    if 0 <= yy < H and 0 <= xx < W:
+                        img[yy, xx] = value
+        x += 4
+
+
+def _draw_epiline(strip: np.ndarray, line, x_off: int, W: int, H: int,
+                  value: int = 150) -> None:
+    """Draw the epipolar line ``ax + by + c = 0`` into the tile starting at
+    column ``x_off`` of the strip (the reference's ``drawlines``,
+    ``computer_code/api/helpers.py:497-504``), dim grey and max-blended so
+    blob marks stay visible where a line crosses them."""
+    a, b, c = (float(v) for v in line)
+    if abs(a) < 1e-12 and abs(b) < 1e-12:
+        return
+    n = 2 * max(W, H)
+    if abs(b) >= abs(a):
+        xs = np.linspace(0.0, W - 1.0, n)
+        ys = -(c + a * xs) / b
+    else:
+        ys = np.linspace(0.0, H - 1.0, n)
+        xs = -(c + b * ys) / a
+    m = (ys >= 0) & (ys <= H - 1) & (xs >= 0) & (xs <= W - 1)
+    if not m.any():
+        return
+    xi = xs[m].astype(np.intp) + x_off
+    yi = ys[m].astype(np.intp)
+    strip[yi, xi] = np.maximum(strip[yi, xi], value)
+
+
+def camera_poses_to_serializable(Rs: np.ndarray, ts: np.ndarray):
+    """Reference wire shape (``computer_code/api/helpers.py:526-530``)."""
+    return [{"R": R.tolist(), "t": np.asarray(t).reshape(-1).tolist()}
+            for R, t in zip(np.asarray(Rs), np.asarray(ts))]
 
 
 def serializable_to_camera_poses(poses):

@@ -159,9 +159,13 @@ def test_engine_end_to_end_on_cpu_matches_jax_engine():
     from low_cost_mocap_tpu.runtime.engine import Engine as JEngine
     from low_cost_mocap_tpu.runtime.serial_link import CollectingLink
 
+    from low_cost_mocap_tpu_torch.runtime.serial_link import \
+        CollectingLink as TCollectingLink
+
     rig, cfg, _, _, src, _ = _setup()
     Rs, ts = src.Rs, src.ts
-    eng = engine_mod.Engine(rig, cfg, device="cpu")
+    # a CPU engine ingests dense frames unless host detection is asked for
+    eng = engine_mod.Engine(rig, cfg, src, TCollectingLink(), device="cpu")
     jeng = JEngine(rig_for_jax(rig), JEngineConfig(), src, CollectingLink(),
                    fast_path=False)
     events = []
@@ -197,25 +201,34 @@ def rig_for_jax(rig: RigConfig):
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    from low_cost_mocap_tpu_torch.runtime.serial_link import CollectingLink
+
     rig, cfg = RigConfig(), EngineConfig()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        engine_mod.Engine(rig, cfg)
+        engine_mod.Engine(rig, cfg, None, CollectingLink())
     with pytest.raises(RuntimeError, match="CUDA"):
         kalman.init_state(2)
-    assert engine_mod.Engine(rig, cfg, device="cpu").device.type == "cpu"
+    assert engine_mod.Engine(rig, cfg, None, CollectingLink(),
+                             device="cpu").device.type == "cpu"
 
 
 def test_unported_options_raise():
+    from low_cost_mocap_tpu_torch.runtime.serial_link import CollectingLink
+
     rig, cfg, calib, _, src, tail = _setup()
+    link = CollectingLink()
+    # batched dispatch needs host detection, and raises only without it
     with pytest.raises(ValueError, match="dispatch_batch"):
-        engine_mod.Engine(rig, EngineConfig(dispatch_batch=4), device="cpu")
+        engine_mod.Engine(rig, EngineConfig(dispatch_batch=4), src, link,
+                          device="cpu", host_detect=False)
+    assert engine_mod.Engine(rig, EngineConfig(dispatch_batch=4), src, link,
+                             device="cpu", host_detect=True)._batch == 4
     with pytest.raises(NotImplementedError):
-        engine_mod.Engine(RigConfig(body_markers=((0, 0, 0),)), cfg,
-                          device="cpu")
+        engine_mod.Engine(RigConfig(body_markers=((0, 0, 0),)), cfg, src,
+                          link, device="cpu")
     frames = torch.from_numpy(src.read_at(0.0))
-    for opt in (dict(do_preprocess=True), dict(do_preprocess=False,
-                                               sparse_input=True),
+    for opt in (dict(do_preprocess=True),
                 dict(do_preprocess=False, with_obs=True)):
         with pytest.raises(NotImplementedError):
             pipeline.frame_step(
