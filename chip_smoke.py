@@ -39,12 +39,23 @@ cc_iters 24, 2 candidates per camera, 2 drones, batches of 128:
    host: each stage timed alone, then device busy time, kernels and copies
    per frame under ``torch.profiler``, and the idle share of each serving
    path;
-8. only with ``--compare-with DIR``: phase 6's kernel times for the
-   checkout in DIR and for this one, in four processes in turns (old, new,
-   new, old) on the same card.
+8. only with ``--compare-with DIR``: phase 6's kernel times, and [4b]'s
+   and [4c]'s serving (frames/s, kernels per frame), for the checkout in
+   DIR and for this one, in four processes in turns (old, new, new, old)
+   on the same card;
+9. the calibration workflow through ``Engine.handle`` on the card:
+   [9a] ``calculate-camera-pose`` from a 1,500-frame wand capture (0.3 px
+   noise, 5% of the observations missing, 3% of the frames with a stray
+   blob), held to the truth and to the port on the CPU fed the same RANSAC
+   index tables; [9b] ``determine-scale``, ``acquire-floor`` and
+   ``set-origin`` on the result, then the orbit tracked with those poses;
+   [9c] ``refine-camera-pose`` over 60 served frames from perturbed poses;
+   [9d] ``calibrate-intrinsics`` from rendered dot-grid frames; [9e]
+   ``run-trajectory`` over ``LoopbackLink``.
 
-Before each serving path ([4]-[5]) the kernels' launch counts are set to 0,
-and after it they are held to what the path must launch.
+Every serving path serves with the matcher's observations (``with_obs``).
+Before each serving path ([4]-[5], [9c], [9e]) the kernels' launch counts
+are set to 0, and after it they are held to what the path must launch.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -54,6 +65,7 @@ exits non-zero; without CUDA it exits non-zero before printing a result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -87,11 +99,47 @@ SERVER_EVENTS = 100  # object-points events [4d] waits for
 DEVICE = "cuda"
 TIMING_RUNS = 20
 BREAKDOWN_FRAMES = 30
+# [9]: a 10 s wand capture at 150 frames/s, 5% of the observations
+# missing, 3% of the frames with a stray blob; the other phases' sizes
+WAND_FRAMES = 1500
+WAND_DROP = 0.05
+WAND_OUTLIERS = 0.03
+SCALE_FRAMES = 200
+FLOOR_POINTS = 60
+ORBIT_FRAMES = 180
+REFINE_FRAMES = 60
+INTRINSICS_VIEWS = 8
+TRAJ_SETPOINTS = 30
+# the card against the CPU on the same wand capture and index tables: the
+# tests' tolerance for the poses (relative rotations, unit translations)
+CALIB_ATOL = 1e-3
 # H100 SXM peaks (NVIDIA's data sheet, at the full 700 W): device memory
 # 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, used for both
 # kernels' scalar work (float32 in the bank, int32 min/select in detection)
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+
+
+class GcPauses:
+    """A full collection, then the sum of the collector's pauses (ms)
+    inside the block.  The script keeps every run's payloads; without the
+    collection first, a full pause over all of them lands in whichever
+    timed run happens to cross the collector's threshold."""
+
+    def __enter__(self):
+        gc.collect()
+        self.ms = 0.0
+        gc.callbacks.append(self._cb)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._cb)
+
+    def _cb(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
 
 
 def fail(msg: str) -> None:
@@ -294,10 +342,11 @@ def phase_serve(rig, cfg, Rs, ts):
     eng.is_locating_objects = True
     payloads = []
     eng.on("object-points", payloads.append)
-    outs, stamps = [], [time.perf_counter()]
-    for f in frames:   # each call ends in a device->host readback
-        outs.append(eng.process_frame(f, 1 / 60))
-        stamps.append(time.perf_counter())
+    with GcPauses():
+        outs, stamps = [], [time.perf_counter()]
+        for f in frames:   # each call ends in a device->host readback
+            outs.append(eng.process_frame(f, 1 / 60))
+            stamps.append(time.perf_counter())
     check(len(payloads) == N_FRAMES, "object-points not emitted per frame")
 
     errs, seen = payload_track_errors(src, payloads)
@@ -429,11 +478,12 @@ def phase_host_serve(rig, cfg, Rs, ts, src):
         check(eng._host_detect and eng._batch == 1,
               "the default card engine does not detect on the host")
         reset_launches()
-        stamps = [time.perf_counter()]
-        for f in frames:
-            eng.process_frame(f, 1 / 60)
-            stamps.append(time.perf_counter())
-        eng.flush_batches()
+        with GcPauses():
+            stamps = [time.perf_counter()]
+            for f in frames:
+                eng.process_frame(f, 1 / 60)
+                stamps.append(time.perf_counter())
+            eng.flush_batches()
         read_launches(f"[4b] depth {depth}", 0, N_FRAMES)
         fps = (N_FRAMES - WARM_FRAMES) / (stamps[-1] - stamps[WARM_FRAMES])
         runs.append((depth, eng, payloads, fps))
@@ -478,10 +528,11 @@ def phase_batched_engine(rig, cfg, Rs, ts, src):
     frames = [src.read_at((N_FRAMES + BATCH + i) / 60) for i in range(n)]
     ref, ref_payloads = serving_engine(rig, cfg, Rs, ts, src)
     reset_launches()
-    t0 = time.perf_counter()
-    for f in frames:
-        ref.process_frame(f, 1 / 60)
-    fps_ref = n / (time.perf_counter() - t0)
+    with GcPauses():
+        t0 = time.perf_counter()
+        for f in frames:
+            ref.process_frame(f, 1 / 60)
+        fps_ref = n / (time.perf_counter() - t0)
     read_launches("[4c] per-frame reference", 0, n)
     runs = {}
     for name, extra in (("inline", {}),
@@ -495,13 +546,14 @@ def phase_batched_engine(rig, cfg, Rs, ts, src):
         payloads.clear()
         eng.timer = StageTimer()     # time the served batches only
         reset_launches()
-        t0 = time.perf_counter()
-        for f in frames:
-            eng.process_frame(f, 1 / 60)
-        eng.flush_batches()
-        fps = n / (time.perf_counter() - t0)
+        with GcPauses() as gcp:
+            t0 = time.perf_counter()
+            for f in frames:
+                eng.process_frame(f, 1 / 60)
+            eng.flush_batches()
+            fps = n / (time.perf_counter() - t0)
         read_launches(f"[4c] batched {name}", 0, BATCH_ROUNDS)
-        runs[name] = (eng, payloads, fps)
+        runs[name] = (eng, payloads, fps, gcp.ms)
     runs["emit worker"][0].stop()     # retires the worker thread
     check(runs["emit worker"][1] == runs["inline"][1],
           "[4c] emit-worker payloads differ from inline")
@@ -516,7 +568,8 @@ def phase_batched_engine(rig, cfg, Rs, ts, src):
           f"max_abs_err {worst}; kalman_bank once a batch")
     for name, run in runs.items():
         print(f"[4c] engine stages, {name} (mean ms; batch-ingest a frame, "
-              f"the others a batch): {stage_means(run[0])}")
+              f"the others a batch): {stage_means(run[0])}; the garbage "
+              f"collector's pauses in the run {run[3]:.1f} ms")
     return runs["inline"][0], {k: v[2] for k, v in runs.items()}, fps_ref
 
 
@@ -733,7 +786,7 @@ def phase_batched(rig, cfg, Rs, ts, src):
                 marker_dist1=rig.marker_dist_short,
                 marker_dist2=rig.marker_dist_long,
                 marker_tol=rig.marker_dist_tol,
-                marker_side_min=rig.marker_side_min)
+                marker_side_min=rig.marker_side_min, with_obs=True)
     blobs, valid = [], []
     for i in range(BATCH):
         f = torch.from_numpy(src.read_at((N_FRAMES + i) / 60)).to(dev)
@@ -758,10 +811,13 @@ def phase_batched(rig, cfg, Rs, ts, src):
 
     C, Kb, O = rig.num_cameras, cfg.max_blobs, rig.num_objects
     worst = 0.0
-    for g, w in zip(pipeline.unpack_outputs_batch(rows_np, C, Kb, O),
-                    pipeline.unpack_outputs_batch(np.stack(per), C, Kb, O)):
+    layout = (C, Kb, O, True)
+    for g, w in zip(pipeline.unpack_outputs_batch(rows_np, *layout),
+                    pipeline.unpack_outputs_batch(np.stack(per), *layout)):
         for a, b in ((g.blob_valid, w.blob_valid),
                      (g.point_valid, w.point_valid),
+                     (g.point_obs_mask, w.point_obs_mask),
+                     (g.point_obs, w.point_obs),
                      (g.objects.valid, w.objects.valid),
                      (g.objects.index, w.objects.index),
                      (g.tracked.valid, w.tracked.valid)):
@@ -779,10 +835,11 @@ def phase_batched(rig, cfg, Rs, ts, src):
                 worst = max(worst, float(np.abs(a[fin] - b[fin]).max()))
     check(worst <= ROWS_ATOL, f"batched vs per-frame max_abs_err {worst}")
     check(bool(np.stack([o.tracked.valid for o in
-                         pipeline.unpack_outputs_batch(rows_np, C, Kb, O)])
+                         pipeline.unpack_outputs_batch(rows_np, *layout)])
                [BATCH // 2:].all()), "batched tail lost a drone")
     print(f"[5] scan_track_from_blobs B={BATCH} == {BATCH} per-frame "
-          f"track_from_blobs rows, max_abs_err {worst}")
+          f"track_from_blobs rows (observations bitwise), max_abs_err "
+          f"{worst}")
     return blobs, valid, dts, cal, tail
 
 
@@ -1051,7 +1108,7 @@ def phase_breakdown(eng, src, fps, eng_hd, fps_hd, eng_b, fps_b):
                 blobs, eng._K[:, None], eng._dist[:, None]), 0.0))
         m = timed("match + triangulate", lambda: correspond.match_points(
             bu, bv, eng._Ps, gate_px=kw["gate_px"],
-            max_candidates=kw["max_candidates"], Fs=eng._F))
+            max_candidates=kw["max_candidates"], Fs=eng._F, with_obs=True))
         pts = timed("world", lambda: torch.where(
             m["valid"][..., None], world.to_world(m["object_points"], eng._M),
             0.0))
@@ -1063,7 +1120,8 @@ def phase_breakdown(eng, src, fps, eng_hd, fps_hd, eng_b, fps_b):
             state, loc, dts, cfg.kalman_report, "auto"))
         timed("pack + readback + decode", lambda: pipeline.unpack_outputs(
             pipeline.pack_outputs(pipeline._batch_outputs(
-                bu, bv, m, pts, loc, tracked))[0].cpu().numpy(), C, K, O))
+                bu, bv, m, pts, loc, tracked))[0].cpu().numpy(),
+            *eng._layout))
     report("[7] detection on the card:")
 
     # host detection: the [4b] engine's per-frame stages
@@ -1081,7 +1139,7 @@ def phase_breakdown(eng, src, fps, eng_hd, fps_hd, eng_b, fps_b):
                                state, up[..., :2], up[..., 2] > 0.5,
                                np.float32(1 / 60), *cal, **eng_hd._tail_kw))
         timed("pack + readback + decode", lambda: pipeline.unpack_outputs(
-            pipeline.pack_outputs(out).cpu().numpy(), C, K, O))
+            pipeline.pack_outputs(out).cpu().numpy(), *eng_hd._layout))
     report("[7] detection on the host:")
 
     def serve(e, fs):
@@ -1105,11 +1163,59 @@ def phase_breakdown(eng, src, fps, eng_hd, fps_hd, eng_b, fps_b):
     return idle
 
 
+def serve_rates():
+    """Per-frame host-detect serving ([4b]'s frames, depth 0) and the
+    batched Engine ([4c]'s frames, inline) of whichever package this
+    process imports: frames/s, and kernels per frame under
+    ``torch.profiler``."""
+    import dataclasses
+
+    from low_cost_mocap_tpu_torch.config import EngineConfig
+    from low_cost_mocap_tpu_torch.runtime.sources import SyntheticSource
+    from low_cost_mocap_tpu_torch.utils import synthetic as syn
+
+    Rs, ts, rig = syn.ring_rig(num_cameras=4, image_size=320)
+    cfg = EngineConfig()
+    src = SyntheticSource(rig, Rs, ts, num_drones=2, headings=(0.0, np.pi))
+    frames = [src.read_at(i / 60) for i in range(N_FRAMES)]
+    eng, _ = serving_engine(rig, cfg, Rs, ts, src)
+    with GcPauses():
+        stamps = [time.perf_counter()]
+        for f in frames:
+            eng.process_frame(f, 1 / 60)
+            stamps.append(time.perf_counter())
+    per_frame = (N_FRAMES - WARM_FRAMES) / (stamps[-1] - stamps[WARM_FRAMES])
+
+    def serve(e, fs):
+        def run():
+            for f in fs:
+                e.process_frame(f, 1 / 60)
+        return run
+
+    kernels = profile_frames(serve(eng, frames[:BREAKDOWN_FRAMES]),
+                             BREAKDOWN_FRAMES)[1]
+    n = BATCH_ROUNDS * BATCH
+    bframes = [src.read_at((N_FRAMES + BATCH + i) / 60) for i in range(n)]
+    eng_b, _ = serving_engine(
+        rig, dataclasses.replace(cfg, dispatch_batch=BATCH), Rs, ts, src)
+    for f in bframes[:BATCH]:       # one batch to warm up
+        eng_b.process_frame(f, 1 / 60)
+    with GcPauses():
+        t0 = time.perf_counter()
+        for f in bframes:
+            eng_b.process_frame(f, 1 / 60)
+        eng_b.flush_batches()
+        batched = n / (time.perf_counter() - t0)
+    return {"per_frame": per_frame, "batched": batched,
+            "kernels_per_frame": kernels}
+
+
 def phase_compare(old_root, frames, args, cands, num_objects):
     """[8] The kernels of another checkout (``old_root``, a directory that
     holds its ``low_cost_mocap_tpu_torch``) against this one's, on the same
     card and the same inputs: four processes in turns, old, new, new, old,
-    each building its own kernels and running ``kernel_times``."""
+    each building its own kernels, running ``kernel_times`` and serving
+    with ``serve_rates``."""
     import tempfile
 
     import torch
@@ -1129,7 +1235,7 @@ def phase_compare(old_root, frames, args, cands, num_objects):
                     f"runpy.run_path({script!r}, run_name='__main__')")
             proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                                   capture_output=True, text=True,
-                                  timeout=600)
+                                  timeout=900)
             check(proc.returncode == 0,
                   f"timing run in {root} failed:\n{proc.stderr[-3000:]}")
             line = [ln for ln in proc.stdout.splitlines()
@@ -1139,6 +1245,11 @@ def phase_compare(old_root, frames, args, cands, num_objects):
                   f"timing run in {root} imported {res['package']}")
             runs.append((label, res))
             print_kernel_times(f"[8] {label} ({root})", res["times"])
+            r = res["rates"]
+            print(f"[8] {label} ({root}) serving: per frame "
+                  f"{r['per_frame']:.1f} frames/s, batched B={BATCH} "
+                  f"{r['batched']:.1f} frames/s, "
+                  f"{r['kernels_per_frame']:.1f} kernels a per-frame frame")
     for name in runs[0][1]["times"]:
         row = {}
         for label in ("old", "new"):
@@ -1149,11 +1260,19 @@ def phase_compare(old_root, frames, args, cands, num_objects):
               f"{row['new'][0]:.4f} ms, device {row['old'][1]:.4f} -> "
               f"{row['new'][1]:.4f} ms (old = {old_root}, mean of two runs "
               "each)")
+    for key in ("per_frame", "batched", "kernels_per_frame"):
+        mean = {label: float(np.mean([r["rates"][key] for lb, r in runs
+                                      if lb == label]))
+                for label in ("old", "new")}
+        print(f"[8] serving {key}: {mean['old']:.1f} -> {mean['new']:.1f} "
+              f"({(mean['new'] / mean['old'] - 1) * 100:+.1f}%, mean of two "
+              "runs each)")
 
 
 def time_kernels_main(path):
-    """``--time-kernels``: ``kernel_times`` on saved inputs, printed as one
-    ``TIMES {...}`` line (a process of ``phase_compare``)."""
+    """``--time-kernels``: ``kernel_times`` on saved inputs and
+    ``serve_rates``, printed as one ``TIMES {...}`` line (a process of
+    ``phase_compare``)."""
     import torch
 
     from low_cost_mocap_tpu_torch.ops import native
@@ -1164,7 +1283,438 @@ def time_kernels_main(path):
     times = kernel_times(d["frames"].to(DEVICE), tuple(d["args"]),
                          tuple(c.to(DEVICE) for c in d["cands"]), d["O"])
     print("TIMES " + json.dumps({"package": os.path.abspath(native.__file__),
-                                 "times": times}))
+                                 "times": times, "rates": serve_rates()}))
+
+
+def wand_capture(rig, Rs, ts, n, seed=0):
+    """A wand capture: one marker over ``n`` frames through the volume,
+    0.3 px noise, about 5% of the observations dropped per camera and 3% of
+    the frames with one camera's detection replaced by a stray blob.
+    Returns (points, mask, outlier frames)."""
+    from low_cost_mocap_tpu_torch.utils import synthetic as syn
+
+    rng = np.random.default_rng(seed)
+    X = syn.random_points(rng, n)
+    pts, mask = syn.observe(X, Rs, ts, rig, noise_px=0.3, rng=rng)
+    mask &= rng.random(mask.shape) >= WAND_DROP
+    out = rng.random(n) < WAND_OUTLIERS
+    cams = rng.integers(0, rig.num_cameras, n)
+    pts[out, cams[out]] = rng.random((int(out.sum()), 2)) * 320
+    return pts, mask, out
+
+
+def wire_points(pts, mask):
+    """The ``cameraPoints`` wire shape: [x, y] or [None, None]."""
+    return [[pts[f, c].tolist() if mask[f, c] else [None, None]
+             for c in range(pts.shape[1])] for f in range(len(pts))]
+
+
+def rel_angles_deg(Rs_a, Rs_b):
+    """Angle (deg) between each camera's rotation relative to camera 0."""
+    ra = np.einsum("cij,kj->cik", Rs_a, Rs_a[0])
+    rb = np.einsum("cij,kj->cik", Rs_b, Rs_b[0])
+    cos = (np.einsum("cij,cij->c", ra, rb) - 1.0) / 2.0
+    return np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))
+
+
+def unit_ts(ts):
+    ts = np.asarray(ts, np.float64)
+    return ts / np.linalg.norm(ts) * np.sign(ts[1, 0])
+
+
+def triangulated(rig, X, Rs_true, ts_true, Rs, ts, M, seed):
+    """World points, as the console collects them: ``X`` observed through
+    the true rig with 0.3 px noise, triangulated with the calibrated poses
+    and put into the engine's world frame under ``M``."""
+    import torch
+
+    from low_cost_mocap_tpu_torch.ops import camera, triangulate, world
+    from low_cost_mocap_tpu_torch.utils import synthetic as syn
+
+    rng = np.random.default_rng(seed)
+    pts, mask = syn.observe(X, Rs_true, ts_true, rig, noise_px=0.3, rng=rng)
+    dev = torch.device(DEVICE)
+    Ps = camera.projection_matrix(
+        torch.as_tensor(rig.K_stack(), device=dev),
+        torch.as_tensor(np.asarray(Rs, np.float32), device=dev),
+        torch.as_tensor(np.asarray(ts, np.float32), device=dev))
+    Xc, _ = triangulate.triangulate_points(
+        torch.as_tensor(pts, device=dev), Ps, torch.as_tensor(mask,
+                                                              device=dev))
+    return world.to_world(Xc, torch.as_tensor(M, device=dev)).cpu().numpy()
+
+
+def procrustes_errors(a, b):
+    """Distances between points ``a`` and the best rigid image of ``b``
+    (rotation, reflection allowed, and translation)."""
+    ca, cb = a.mean(0), b.mean(0)
+    U, _, Vt = np.linalg.svd((b - cb).T @ (a - ca))
+    return np.linalg.norm((b - cb) @ (U @ Vt) + ca - a, axis=1)
+
+
+def phase_calibration(rig, cfg, Rs, ts):
+    """[9] The calibration workflow and trajectory execution through
+    ``Engine.handle`` on the CUDA engine.  Returns (bank launches of the
+    served frames, the printed timings)."""
+    import torch
+
+    from low_cost_mocap_tpu_torch.models import calibrator
+    from low_cost_mocap_tpu_torch.ops import ba, ransac, triangulate
+    from low_cost_mocap_tpu_torch.runtime.engine import (
+        Engine, camera_poses_to_serializable)
+    from low_cost_mocap_tpu_torch.runtime.serial_link import (CollectingLink,
+                                                              LoopbackLink)
+    from low_cost_mocap_tpu_torch.runtime.sources import SyntheticSource
+    from low_cost_mocap_tpu_torch.utils import synthetic as syn
+
+    C = rig.num_cameras
+    dev = torch.device(DEVICE)
+    t_all = time.perf_counter()
+    # [9a] calculate-camera-pose from a wand capture
+    pts, mask, outl = wand_capture(rig, Rs, ts, WAND_FRAMES)
+    eng = Engine(rig, cfg, None, CollectingLink(), device=DEVICE)
+    events = []
+    eng.on("camera-pose", events.append)
+    event_ms, finals = [], []
+    # the first event in a process also loads the linear-algebra libraries;
+    # the second is the steady cost
+    for _ in range(2):
+        events.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.handle("calculate-camera-pose",
+                   {"cameraPoints": wire_points(pts, mask)})
+        torch.cuda.synchronize()
+        event_ms.append((time.perf_counter() - t0) * 1e3)
+        finals.append(np.asarray([p["R"] for p in
+                                  events[-1]["camera_poses"]]))
+    d_again = float(np.abs(finals[0] - finals[1]).max())
+    check(d_again < CALIB_ATOL, f"[9a] the second event's rotations differ "
+          f"from the first's by {d_again}")
+    iters = [e.get("ba_iters") for e in events]
+    want = list(range(8, cfg.ba_max_iters + 1, 8)) + [None]
+    check(iters == want, f"[9a] progress events {iters}, want {want}")
+    Rs_c, ts_c = eng.camera_poses
+    ang = rel_angles_deg(Rs_c, Rs)
+    check(ang.max() < 0.5, f"[9a] relative rotations off by {ang} deg")
+    # the error of the frames without a stray blob (the event's own error
+    # averages the strays' in too)
+    keep = ~outl
+    Ps = torch.as_tensor(rig.K_stack(), device=dev) @ torch.cat(
+        [torch.as_tensor(Rs_c, device=dev),
+         torch.as_tensor(ts_c, device=dev)[..., None]], -1)
+    p_in = torch.as_tensor(pts[keep], device=dev)
+    m_in = torch.as_tensor(mask[keep], device=dev)
+    X_in, _ = triangulate.triangulate_points(p_in, Ps, m_in)
+    e_in = triangulate.reprojection_errors(p_in, X_in, Ps, m_in).cpu().numpy()
+    err_in = float(e_in[np.isfinite(e_in)].mean())
+    check(err_in < 0.5, f"[9a] mean error {err_in} px^2 on the clean frames")
+    # the same inputs and index tables through the port on the CPU
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    mask_d = torch.as_tensor(mask, device=dev)
+    tables = [ransac.draw_samples(mask_d[:, i] & mask_d[:, i + 1],
+                                  cfg.ransac_iters, gen)
+              for i in range(C - 1)]
+    cpu_res = calibrator.calibrate(
+        torch.as_tensor(pts), torch.as_tensor(mask),
+        torch.as_tensor(rig.K_stack()), ransac_iters=cfg.ransac_iters,
+        threshold_px=cfg.ransac_threshold_px, ba_iters=cfg.ba_max_iters,
+        progress_cb=lambda *a: None, index_tables=[t.cpu() for t in tables])
+    d_rot = float(np.abs(np.einsum("cij,kj->cik", Rs_c, Rs_c[0])
+                         - np.einsum("cij,kj->cik", cpu_res.Rs.numpy(),
+                                     cpu_res.Rs.numpy()[0])).max())
+    d_t = float(np.abs(unit_ts(ts_c) - unit_ts(cpu_res.ts.numpy())).max())
+    d_err = abs(events[-1]["error"] - float(cpu_res.mean_error))
+    check(d_rot < CALIB_ATOL and d_t < CALIB_ATOL
+          and d_err < CALIB_ATOL * max(1.0, events[-1]["error"]),
+          f"[9a] card vs CPU: rotations {d_rot}, translations {d_t}, error "
+          f"{d_err}")
+    # RANSAC and BA alone on the card, on the same tables
+    Kd = torch.as_tensor(rig.K_stack(), device=dev)
+    pts_d = torch.as_tensor(pts, device=dev)
+    ransac_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Rs0, ts0 = calibrator.bootstrap_poses(
+            pts_d, mask_d, Kd, cfg.ransac_iters, cfg.ransac_threshold_px,
+            index_tables=tables)
+        torch.cuda.synchronize()
+        ransac_ms.append((time.perf_counter() - t0) * 1e3)
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ba.bundle_adjust(pts_d, mask_d, Kd, Rs0, ts0, num_cameras=C,
+                     max_iters=cfg.ba_max_iters, stats=stats)
+    torch.cuda.synchronize()
+    ba_ms = (time.perf_counter() - t0) * 1e3
+    timings = {"event_ms": event_ms[1], "first_event_ms": event_ms[0],
+               "ransac_ms": float(np.median(ransac_ms)),
+               "ba_ms": ba_ms, "ba_iters": stats["iterations"]}
+    print(f"[9a] calculate-camera-pose on {WAND_FRAMES} wand frames "
+          f"({int(outl.sum())} with a stray blob, "
+          f"{int((~mask).sum())} observations missing): {len(events)} "
+          f"camera-pose events, ba_iters {iters[:-1]}; event error "
+          f"{events[-1]['error']:.4f} px^2, {err_in:.4f} on the clean "
+          f"frames; relative rotations off the truth by "
+          f"{', '.join(f'{a:.4f}' for a in ang[1:])} deg; against the CPU "
+          f"on the same index tables: rotations {d_rot:.2e}, unit "
+          f"translations {d_t:.2e}, error {d_err:.2e}; the two events' "
+          f"rotations {d_again:.1e} apart; on the card: the "
+          f"event {event_ms[1]:.1f} ms ({event_ms[0]:.1f} ms the first time "
+          f"in the process), RANSAC (3 pairs x "
+          f"{cfg.ransac_iters} trials) {timings['ransac_ms']:.1f} ms, one "
+          f"BA solve {ba_ms:.1f} ms over {stats['iterations']} iterations "
+          f"({ba_ms / max(stats['iterations'], 1):.2f} ms and one device "
+          "read each)")
+
+    # [9b] determine-scale, acquire-floor, set-origin on the result
+    rng = np.random.default_rng(1)
+    centre = syn.random_points(rng, SCALE_FRAMES)
+    u = rng.normal(size=(SCALE_FRAMES, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    half = (u * rig.wand_length / 2).astype(np.float32)
+    ends = np.concatenate([centre - half, centre + half])
+    M0 = np.eye(4, dtype=np.float32)
+    W = triangulated(rig, ends, Rs, ts, Rs_c, ts_c, M0, seed=2)
+    pairs = np.stack([W[:SCALE_FRAMES], W[SCALE_FRAMES:]], 1)
+    eng.handle("determine-scale", {
+        "objectPoints": pairs.tolist(),
+        "cameraPoses": camera_poses_to_serializable(Rs_c, ts_c)})
+    Rs_s, ts_s = eng.camera_poses
+    scale_err = baseline(Rs_s, ts_s) / baseline(Rs, ts) - 1.0
+    check(abs(scale_err) < 0.02, f"[9b] baseline off by {scale_err:.4f}")
+    floor = np.concatenate([rng.uniform(-0.6, 0.6, (FLOOR_POINTS, 2)),
+                            np.zeros((FLOOR_POINTS, 1))], 1).astype(np.float32)
+    mats = []
+    eng.on("to-world-coords-matrix", mats.append)
+    eng.handle("acquire-floor", {"objectPoints": [triangulated(
+        rig, floor, Rs, ts, Rs_s, ts_s, eng.to_world_matrix, 3).tolist()]})
+    level = triangulated(rig, floor, Rs, ts, Rs_s, ts_s,
+                         eng.to_world_matrix, 4)
+    origin = triangulated(rig, np.zeros((1, 3), np.float32), Rs, ts, Rs_s,
+                          ts_s, eng.to_world_matrix, 5)[0]
+    eng.handle("set-origin", {"objectPoint": origin.tolist(),
+                              "toWorldCoordsMatrix":
+                                  eng.to_world_matrix.tolist()})
+    check(len(mats) == 2, "[9b] to-world-coords-matrix events")
+    floor_std = float(level[:, 1].std())
+    check(floor_std < 3e-3, f"[9b] the floor is not level: height std "
+          f"{floor_std} m")
+    # track the orbit with the calibrated, scaled, levelled poses.  The
+    # locator tells a drone's third LED by its offset along the world's z
+    # axis, so the drones fly with that LED along the calibrated frame's z
+    # (whose yaw camera 0 set)
+    probe = syn.random_points(rng, 50)
+    W = triangulated(rig, probe, Rs, ts, Rs_s, ts_s, eng.to_world_matrix, 6)
+    U, _, Vt = np.linalg.svd((probe - probe.mean(0)).T @ (W - W.mean(0)))
+    z_dir = (U @ Vt)[:2, 2]
+    psi = float(np.arctan2(-z_dir[0], z_dir[1]))
+    src = SyntheticSource(rig, Rs, ts, num_drones=2, headings=(psi,
+                                                                psi + np.pi))
+    trk, payloads = serving_engine(rig, cfg, Rs_s, ts_s, src)
+    trk.handle("triangulate-points", {
+        "startOrStop": "start",
+        "cameraPoses": camera_poses_to_serializable(Rs_s, ts_s),
+        "toWorldCoordsMatrix": eng.to_world_matrix.tolist()})
+    payloads.clear()
+    for i in range(ORBIT_FRAMES):
+        trk.process_frame(src.read_at(i / 60), 1 / 60)
+    got, truth = [], []
+    for i, p in enumerate(payloads[SETTLE_FRAMES:], start=SETTLE_FRAMES):
+        if len(p["filtered_objects"]) != 2:
+            continue
+        truth.append([src.drone_pose(d, i / 60)[0] for d in range(2)])
+        got.append([o["pos"] for o in p["filtered_objects"]])
+    check(len(got) >= 0.9 * (ORBIT_FRAMES - SETTLE_FRAMES),
+          f"[9b] both drones tracked in {len(got)} frames")
+    got = np.asarray(got, np.float64).reshape(-1, 3)
+    truth = np.asarray(truth, np.float64).reshape(-1, 3)
+    # the drones' identities may swap under the calibrated frame's yaw:
+    # align with either pairing and keep the better one
+    errs = min((procrustes_errors(got, t) for t in
+                (truth, truth.reshape(-1, 2, 3)[:, ::-1].reshape(-1, 3))),
+               key=lambda e: e.mean())
+    check(errs.mean() < 0.02 and errs.max() < 0.05,
+          f"[9b] tracking error mean {errs.mean():.4f} max "
+          f"{errs.max():.4f} m")
+    print(f"[9b] determine-scale from {SCALE_FRAMES} wand pairs (baseline "
+          f"scale error {scale_err * 100:.3f}%), acquire-floor from "
+          f"{FLOOR_POINTS} floor points (height std after {floor_std * 1e3:.2f}"
+          f" mm), set-origin; the orbit tracked with the calibrated poses "
+          f"over {ORBIT_FRAMES} frames: error after a rigid alignment mean "
+          f"{errs.mean() * 1e3:.2f} mm, max {errs.max() * 1e3:.2f} mm")
+
+    # [9c] refine-camera-pose over served frames from perturbed poses
+    reset_launches()
+    Rs_p, ts_p = perturbed_poses(Rs, ts)
+    ref, pl = serving_engine(rig, cfg, Rs_p, ts_p, src)
+    poses = []
+    ref.on("camera-pose", poses.append)
+    ref.handle("refine-camera-pose", {"startOrStop": "start"})
+    for i in range(REFINE_FRAMES):
+        ref.process_frame(sweep_frame(i, rig, Rs, ts), 1 / 60)
+    before = float(np.median([e for p in pl for e in p["errors"]]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref.handle("refine-camera-pose", {"startOrStop": "stop"})
+    refine_ms = (time.perf_counter() - t0) * 1e3
+    pl.clear()
+    for i in range(REFINE_FRAMES, REFINE_FRAMES + 20):
+        ref.process_frame(sweep_frame(i, rig, Rs, ts), 1 / 60)
+    after = float(np.median([e for p in pl for e in p["errors"]]))
+    launches = read_launches("[9c]", 0, REFINE_FRAMES + 20)
+    check(len(poses) == 1 and poses[0].get("refined_from_points", 0) >= 60,
+          f"[9c] refine events {poses}")
+    check(after <= 0.5 * before, f"[9c] median error {before} -> {after}")
+    timings["refine_ms"] = refine_ms
+    print(f"[9c] refine-camera-pose over {REFINE_FRAMES} served frames "
+          f"({poses[0]['refined_from_points']} points): median error "
+          f"{before:.4f} -> {after:.4f} px^2 on the next 20 frames; the "
+          f"stop (BA with focals pinned) took {refine_ms:.1f} ms; "
+          f"kalman_bank {launches[1]} launches")
+
+    # [9d] calibrate-intrinsics on camera 0 from rendered dot grids
+    K_t, views = intrinsics_views(rig)
+    got_v = {"views": 0, "result": None}
+    eng.on("intrinsics-views", lambda d: got_v.__setitem__("views",
+                                                           d["views"]))
+    eng.on("camera-intrinsics", lambda d: got_v.__setitem__("result", d))
+    eng.handle("calibrate-intrinsics", {"startOrStop": "start",
+                                        "cameraIndex": 0, "rows": 4,
+                                        "cols": 5, "spacing": 0.05})
+    for f in views:
+        eng.process_frame(f, 1 / 60)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.handle("calibrate-intrinsics", {"startOrStop": "stop"})
+    intr_ms = (time.perf_counter() - t0) * 1e3
+    res = got_v["result"]
+    check(res is not None and res["error"] is None,
+          f"[9d] calibrate-intrinsics: {res}")
+    K = np.asarray(res["K"])
+    rel = np.abs(np.diag(K)[:2] / np.diag(K_t)[:2] - 1.0)
+    check(rel.max() < 0.03, f"[9d] fx, fy off by {rel}")
+    timings["intrinsics_ms"] = intr_ms
+    print(f"[9d] calibrate-intrinsics on camera 0 from {res['views']} "
+          f"rendered 320x320 dot-grid views: fx {K[0, 0]:.2f} (true "
+          f"{K_t[0, 0]:.2f}), fy {K[1, 1]:.2f} (true {K_t[1, 1]:.2f}), rms "
+          f"{res['rms_px']:.4f} px; the stop took {intr_ms:.1f} ms")
+
+    # [9e] run-trajectory over the loopback link
+    class RecordingLoopback(LoopbackLink):
+        def __init__(self, n):
+            super().__init__(n)
+            self.sent = []
+
+        def send(self, drone_index, payload):
+            self.sent.append((drone_index, payload))
+            super().send(drone_index, payload)
+
+    reset_launches()
+    static = SyntheticSource(rig, Rs, ts, num_drones=2,
+                             headings=(0.0, np.pi), orbit_hz=0.0)
+    link = RecordingLoopback(rig.num_objects)
+    fly = Engine(rig, cfg, static, link, device=DEVICE)
+    start_tracking(fly, Rs, ts)
+    statuses = []
+    fly.on("trajectory-status", statuses.append)
+    frame = static.read_at(0.0)
+    for _ in range(5):
+        out = fly.process_frame(frame, 1 / 60)
+    check(bool(out.tracked.valid.all()), "[9e] drones not tracked")
+    fw = [[float(p[0]), float(p[2]), float(p[1])] for p in out.tracked.pos]
+    plan = [[fw[0][0] + 0.002 * k, fw[0][1], fw[0][2],
+             fw[1][0], fw[1][1] + 0.002 * k, fw[1][2]]
+            for k in range(TRAJ_SETPOINTS)]
+    link.sent.clear()
+    fly.handle("run-trajectory", {"setpoints": plan, "timestep": 1 / 60,
+                                  "arrivalTol": 0.05})
+    n_served = 5
+    while (not statuses or statuses[-1]["phase"] not in ("done", "aborted")) \
+            and n_served < 5 + TRAJ_SETPOINTS + 30:
+        fly.process_frame(frame, 1 / 60)
+        link.tick(1 / 60)
+        n_served += 1
+    phases = [s["phase"] for s in statuses]
+    check(phases == ["fly-to-start", "executing", "done"],
+          f"[9e] trajectory phases {phases}")
+    sent = [(d, p["setpoint"]) for d, p in link.sent if "setpoint" in p]
+    want_sent = [(d, plan[0][3 * d:3 * d + 3]) for d in range(2)] + [
+        (d, row[3 * d:3 * d + 3]) for row in plan[1:] for d in range(2)]
+    check(sent == want_sent, "[9e] setpoints not sent in order")
+    launches_e = read_launches("[9e]", 0, n_served)
+    print(f"[9e] run-trajectory over the loopback link: phases {phases}, "
+          f"{len(sent)} setpoints sent in plan order over {n_served} served "
+          f"frames; kalman_bank {launches_e[1]} launches")
+    print(f"[9] calibration phases took {time.perf_counter() - t_all:.1f} s")
+    return launches[1] + launches_e[1], timings
+
+
+def baseline(Rs, ts):
+    """Distance between the centres of cameras 0 and 1."""
+    c = -np.einsum("cji,cj->ci", Rs, ts)
+    return float(np.linalg.norm(c[1] - c[0]))
+
+
+def perturbed_poses(Rs, ts, seed=7):
+    """Poses about 0.01 rad and 1 cm off the truth."""
+    import torch
+
+    from low_cost_mocap_tpu_torch.ops import rotations
+
+    rng = np.random.default_rng(seed)
+    dR = rotations.rotvec_to_matrix(torch.as_tensor(
+        rng.normal(scale=0.01, size=(len(Rs), 3)).astype(np.float32))).numpy()
+    return (np.einsum("cij,cjk->cik", dR, Rs).astype(np.float32),
+            (ts + rng.normal(scale=0.01, size=ts.shape)).astype(np.float32))
+
+
+def sweep_frame(i, rig, Rs, ts):
+    """One drone swept through the volume on a script."""
+    from low_cost_mocap_tpu_torch.utils import synthetic as syn
+
+    phase = 2 * np.pi * i / 40.0
+    pos = np.array([0.35 * np.cos(phase), 0.35 * np.sin(phase),
+                    0.6 + 0.15 * np.sin(2 * phase)], np.float32)
+    pts, mask = syn.observe(syn.drone_markers(pos, 0.0, rig), Rs, ts, rig)
+    return (syn.render_frames(pts, mask, rig.image_size, sigma=0.8)
+            * 255).astype(np.uint8)
+
+
+def intrinsics_views(rig, n=INTRINSICS_VIEWS, seed=9):
+    """Rendered frames of a 4x5 dot grid (5 cm pitch) in front of camera 0
+    at varied tilts, through a pinhole K; the other cameras dark."""
+    import torch
+
+    from low_cost_mocap_tpu_torch.ops import rotations
+    from low_cost_mocap_tpu_torch.ops.intrinsics import make_grid
+    from low_cost_mocap_tpu_torch.utils import synthetic as syn
+
+    S = 320
+    K_t = np.array([[0.8 * S, 0.0, S / 2 + 3.0], [0.0, 0.79 * S, S / 2 - 4.0],
+                    [0.0, 0.0, 1.0]])
+    board = make_grid(4, 5, 0.05).astype(np.float64)
+    obj3 = np.concatenate([board, np.zeros((len(board), 1))], axis=-1)
+    rng = np.random.default_rng(seed)
+    frames = []
+    while len(frames) < n:
+        rvec = np.deg2rad(rng.uniform(-25, 25, size=3) * [1, 1, 0.7])
+        R = rotations.rotvec_to_matrix(torch.as_tensor(rvec)).numpy()
+        t = np.array([-0.10 + rng.uniform(-0.02, 0.02),
+                      -0.08 + rng.uniform(-0.02, 0.02),
+                      rng.uniform(0.5, 0.7)])
+        Xc = obj3 @ R.T + t
+        uv = Xc[:, :2] / Xc[:, 2:3] * [K_t[0, 0], K_t[1, 1]] + K_t[:2, 2]
+        if not ((uv > 4).all() and (uv < S - 5).all()):
+            continue
+        f0 = syn.render_frames(uv[:, None, :].astype(np.float32),
+                               np.ones((len(uv), 1), bool), S, sigma=1.2)
+        f = np.zeros((rig.num_cameras, S, S), np.uint8)
+        f[0] = (f0[0] * 255).astype(np.uint8)
+        frames.append(f)
+    return K_t, frames
 
 
 def main() -> None:
@@ -1213,6 +1763,9 @@ def main() -> None:
     batch = phase_batched(rig, cfg, Rs, ts, src)
     paths["[5] batched tail + per-frame checks"] = read_launches(
         "[5]", BATCH, 1 + BATCH)
+    # [9] resets and reads the counts around each of its serving paths
+    bank9, calib_times = phase_calibration(rig, cfg, Rs, ts)
+    paths["[9c] + [9e] refinement and trajectory serving"] = (0, bank9)
     launches = tuple(int(sum(v[i] for v in paths.values())) for i in (0, 1))
     for name, (d, k) in paths.items():
         print(f"    {name}: detect_blobs {d}, kalman_bank {k} launches")

@@ -14,15 +14,16 @@ kernel.
 
 Frames come in dense (uint8 or float), as 1-bit packed rows, or as the
 lit pixels' indices (sparse ingest, ``ops.detect.sparse_ingest``).
+``with_obs`` adds the matcher's per-camera observations of every point to
+the outputs (and to the packed row), which live recalibration collects.
 
 Not ported yet (they raise ``NotImplementedError``): preprocessing
-(blur + sharpen), the matcher's per-camera observations (``with_obs``) and
-rigid-body templates.
+(blur + sharpen) and rigid-body templates.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -43,6 +44,8 @@ class FrameOutputs(NamedTuple):
     point_valid: torch.Tensor    # (C*K,)
     objects: rigid.LocatedObjects      # raw rigid-body fits
     tracked: kalman.TrackedObjects     # Kalman/low-pass output
+    point_obs: Any = None        # (C*K, C, 2) winners' per-camera pixels
+    point_obs_mask: Any = None   # (C*K, C); both with ``with_obs`` only
 
 
 def pack_outputs(out: FrameOutputs) -> torch.Tensor:
@@ -52,32 +55,40 @@ def pack_outputs(out: FrameOutputs) -> torch.Tensor:
     lead = out.tracked.valid.shape[:-1]
     leaves = [out.blob_px, out.blob_valid, out.object_points,
               out.point_errors, out.point_valid, *out.objects, *out.tracked]
+    if out.point_obs is not None:
+        leaves += [out.point_obs, out.point_obs_mask]
     return torch.cat([t.to(torch.float32).reshape(*lead, -1)
                       for t in leaves], dim=-1)
 
 
-def _sizes(C: int, K: int, O: int) -> list:
+def _sizes(C: int, K: int, O: int, with_obs: bool) -> list:
     N = C * K
     return [C * K * 2, C * K, N * 3, N, N, N * 3, N, N, N, N,
-            O * 3, O * 3, O, O]
+            O * 3, O * 3, O, O] + ([N * C * 2, N * C] if with_obs else [])
 
 
-def row_length(num_cameras: int, max_blobs: int, num_objects: int) -> int:
+def row_length(num_cameras: int, max_blobs: int, num_objects: int,
+               with_obs: bool = False) -> int:
     """Length L of one frame's packed row (``pack_outputs``)."""
-    return sum(_sizes(num_cameras, max_blobs, num_objects))
+    return sum(_sizes(num_cameras, max_blobs, num_objects, with_obs))
 
 
 def unpack_outputs_batch(rows: np.ndarray, num_cameras: int, max_blobs: int,
-                         num_objects: int) -> list:
+                         num_objects: int, with_obs: bool = False) -> list:
     """Decode a (B, L) batch of packed rows into per-frame FrameOutputs of
-    numpy arrays (views into the batch)."""
+    numpy arrays (views into the batch).  ``with_obs`` mirrors the step's
+    flag."""
     C, K, O = num_cameras, max_blobs, num_objects
     N = C * K
     rows = np.asarray(rows)
     B = rows.shape[0]
+    splits = np.split(rows, np.cumsum(_sizes(C, K, O, with_obs))[:-1],
+                      axis=1)
     (blob_px, blob_valid, obj_pts, errs, pvalid, lpos, lhead, lerr, lidx,
-     lvalid, tpos, tvel, thead, tvalid) = np.split(
-        rows, np.cumsum(_sizes(C, K, O))[:-1], axis=1)
+     lvalid, tpos, tvel, thead, tvalid) = splits[:14]
+    if with_obs:
+        pobs = splits[14].reshape(B, N, C, 2)
+        pobs_m = splits[15].reshape(B, N, C) > 0.5
     blob_px = blob_px.reshape(B, C, K, 2)
     blob_valid = blob_valid.reshape(B, C, K) > 0.5
     obj_pts = obj_pts.reshape(B, N, 3)
@@ -97,35 +108,35 @@ def unpack_outputs_batch(rows: np.ndarray, num_cameras: int, max_blobs: int,
                                      valid=lvalid[i]),
         tracked=kalman.TrackedObjects(pos=tpos[i], vel=tvel[i],
                                       heading=thead[i], valid=tvalid[i]),
+        point_obs=pobs[i] if with_obs else None,
+        point_obs_mask=pobs_m[i] if with_obs else None,
     ) for i in range(B)]
 
 
 def unpack_outputs(arr: np.ndarray, num_cameras: int, max_blobs: int,
-                   num_objects: int) -> FrameOutputs:
+                   num_objects: int, with_obs: bool = False) -> FrameOutputs:
     """Inverse of ``pack_outputs`` on one host row."""
     return unpack_outputs_batch(np.asarray(arr)[None], num_cameras,
-                                max_blobs, num_objects)[0]
+                                max_blobs, num_objects, with_obs)[0]
 
 
-def _not_ported(body_template=None, body_sets=None, with_obs=False) -> None:
+def _not_ported(body_template=None, body_sets=None) -> None:
     if body_template is not None or body_sets:
         raise NotImplementedError(
             "rigid-body templates are not ported to PyTorch yet")
-    if with_obs:
-        raise NotImplementedError(
-            "with_obs (matcher observations) is not ported to PyTorch yet")
 
 
 def _locate_frame(blobs, blob_valid, Ps, K, dist, to_world_matrix, Fs, *,
                   gate_px, max_candidates, marker_dist1, marker_dist2,
-                  marker_tol, marker_side_min):
+                  marker_tol, marker_side_min, with_obs=False):
     """Frame-independent geometry over a (B, C, K, ...) batch: undistort ->
     epipolar match -> DLT -> world transform -> rigid-body triple fit.
     Returns (blobs_u, match dict, world points, LocatedObjects)."""
     blobs_u = cam_ops.undistort_points(blobs, K[:, None], dist[:, None])
     blobs_u = torch.where(blob_valid[..., None], blobs_u, 0.0)
     match = correspond.match_points(blobs_u, blob_valid, Ps, gate_px=gate_px,
-                                    max_candidates=max_candidates, Fs=Fs)
+                                    max_candidates=max_candidates, Fs=Fs,
+                                    with_obs=with_obs)
     pts = world.to_world(match["object_points"], to_world_matrix)
     pts = torch.where(match["valid"][..., None], pts, 0.0)
     # heading/side axes (0, 2): the horizontal plane of the world frame
@@ -158,7 +169,8 @@ def _batch_outputs(blobs_u, blob_valid, match, pts, located, tracked):
     return FrameOutputs(
         blob_px=blobs_u, blob_valid=blob_valid, object_points=pts,
         point_errors=match["errors"], point_valid=match["valid"],
-        objects=located, tracked=tracked)
+        objects=located, tracked=tracked, point_obs=match.get("obs"),
+        point_obs_mask=match.get("obs_mask"))
 
 
 def scan_track_from_blobs(state, blobs_b, blob_valid_b, dts, Ps, K, dist,
@@ -175,12 +187,13 @@ def scan_track_from_blobs(state, blobs_b, blob_valid_b, dts, Ps, K, dist,
     blobs_b: (B, C, K, 2); blob_valid_b: (B, C, K); dts: (B,).
     Returns (state after B frames, packed (B, L) rows).
     """
-    _not_ported(body_template, body_sets, with_obs)
+    _not_ported(body_template, body_sets)
     geo = _locate_frame(
         blobs_b, blob_valid_b, Ps, K, dist, to_world_matrix, Fs,
         gate_px=gate_px, max_candidates=max_candidates,
         marker_dist1=marker_dist1, marker_dist2=marker_dist2,
-        marker_tol=marker_tol, marker_side_min=marker_side_min)
+        marker_tol=marker_tol, marker_side_min=marker_side_min,
+        with_obs=with_obs)
     dts = torch.as_tensor(dts, dtype=torch.float32, device=blobs_b.device)
     state, tracked = _bank(state, geo[3], dts, kalman_report, kalman_impl)
     return state, pack_outputs(_batch_outputs(geo[0], blob_valid_b, *geo[1:],
@@ -197,14 +210,15 @@ def track_from_blobs(state, blobs, blob_valid, dt, Ps, K, dist,
                      kalman_impl: str = "auto"):
     """Post-detection tail of one frame: (C, K, 2) blobs -> (new_state,
     FrameOutputs).  The batched code at B = 1."""
-    _not_ported(body_template, body_sets, with_obs)
+    _not_ported(body_template, body_sets)
     if Fs is None:
         Fs = correspond._pairwise_fundamentals(Ps)
     geo = _locate_frame(
         blobs[None], blob_valid[None], Ps, K, dist, to_world_matrix, Fs,
         gate_px=gate_px, max_candidates=max_candidates,
         marker_dist1=marker_dist1, marker_dist2=marker_dist2,
-        marker_tol=marker_tol, marker_side_min=marker_side_min)
+        marker_tol=marker_tol, marker_side_min=marker_side_min,
+        with_obs=with_obs)
     dts = torch.as_tensor(dt, dtype=torch.float32,
                           device=blobs.device).reshape(1)
     state, tracked = _bank(state, geo[3], dts, kalman_report, kalman_impl)
@@ -213,7 +227,9 @@ def track_from_blobs(state, blobs, blob_valid, dt, Ps, K, dist,
         out.blob_px[0], out.blob_valid[0], out.object_points[0],
         out.point_errors[0], out.point_valid[0],
         rigid.LocatedObjects(*(t[0] for t in out.objects)),
-        kalman.TrackedObjects(*(t[0] for t in out.tracked)))
+        kalman.TrackedObjects(*(t[0] for t in out.tracked)),
+        *(None if t is None else t[0]
+          for t in (out.point_obs, out.point_obs_mask)))
 
 
 def frame_step(state, frames, dt, Ps, K, dist, to_world_matrix, Fs=None, *,

@@ -136,14 +136,18 @@ def _take(x, idx):
 
 def match_points(pts, valid, Ps, gate_px: float = 5.0,
                  max_candidates: int = 2, dedupe_eps: float = 0.02,
-                 mode: str = "auto", Fs=None):
+                 mode: str = "auto", Fs=None, with_obs: bool = False):
     """Full-frame correspondence + triangulation, exact mode.
 
     pts: (C, K, 2) or (B, C, K, 2) undistorted blob centroids; valid: the
     matching (C, K) or (B, C, K); Ps: (C, 3, 4).  Returns a dict with
     ``object_points`` (..., C*K, 3), ``errors`` (..., C*K) and ``valid``
-    (..., C*K): one output slot per potential root.  ``mode`` "auto" and
-    "exact" run the exact matcher; "assoc" and "beam" are not ported yet.
+    (..., C*K): one output slot per potential root.  ``with_obs`` adds the
+    winners' per-camera observations, ``obs`` (..., C*K, C, 2) and
+    ``obs_mask`` (..., C*K, C), zero where masked: the correspondence-
+    resolved measurements live recalibration refines from.  ``mode``
+    "auto" and "exact" run the exact matcher; "assoc" and "beam" are not
+    ported yet.
     """
     if mode not in ("auto", "exact"):
         raise NotImplementedError(
@@ -210,16 +214,21 @@ def match_points(pts, valid, Ps, gate_px: float = 5.0,
     score = torch.where(ok, score, _INF)
 
     # per-root-camera winner over each root camera's contiguous slice
-    out_pts, out_err = [], []
+    out_pts, out_err, out_obs, out_om = [], [], [], []
     h0 = 0
     for rc in range(C):
         n_h = n_opt ** (C - 1 - rc)
         best = torch.argmin(score[:, :, h0:h0 + n_h], dim=-1)  # (B, K)
         out_pts.append(_take(X[:, :, h0:h0 + n_h], best))
         out_err.append(_take(err[:, :, h0:h0 + n_h], best))
+        if with_obs:
+            out_obs.append(_take(sel[:, :, h0:h0 + n_h], best))
+            out_om.append(_take(msk[:, :, h0:h0 + n_h], best))
         h0 += n_h
     object_points = torch.cat(out_pts, dim=1)                   # (B, C*K, 3)
     errors = torch.cat(out_err, dim=1)
+    obs = torch.cat(out_obs, dim=1) if with_obs else None       # (B,C*K,C,2)
+    obs_mask = torch.cat(out_om, dim=1) if with_obs else None   # (B, C*K, C)
     ok = torch.isfinite(errors) & root_mask.reshape(Bz, C * K)
     errors = torch.where(ok, errors, _INF)
 
@@ -265,16 +274,28 @@ def match_points(pts, valid, Ps, gate_px: float = 5.0,
             torch.cat([a_err, torch.full((Bz, N - K), _INF, dtype=f32,
                                          device=dev)], 1),
             errors)
+        if with_obs:
+            a_obs = _take(sel[:, :, :H0], best2)                # (B, K, C, 2)
+            a_om = _take(msk[:, :, :H0], best2)
+            obs = torch.where(use_alt[..., None, None],
+                              torch.cat([a_obs, torch.zeros_like(obs[:, K:])],
+                                        1), obs)
+            obs_mask = torch.where(
+                use_alt[..., None],
+                torch.cat([a_om, torch.zeros_like(obs_mask[:, K:])], 1),
+                obs_mask)
 
-    out = _finalize(object_points, errors, ok, dedupe_eps)
+    out = _finalize(object_points, errors, ok, dedupe_eps, obs, obs_mask)
     if squeeze:
         out = {k: v[0] for k, v in out.items()}
     return out
 
 
-def _finalize(object_points, errors, ok, dedupe_eps):
+def _finalize(object_points, errors, ok, dedupe_eps, obs=None,
+              obs_mask=None):
     """Ghost dedupe: drop a point when a strictly better (or equal-error,
-    lower-index) valid point lies within ``dedupe_eps``.  (B, N, ...)."""
+    lower-index) valid point lies within ``dedupe_eps``.  (B, N, ...).
+    The winners' observations, when given, keep only surviving points'."""
     if dedupe_eps > 0:
         diff = object_points[:, :, None, :] - object_points[:, None, :, :]
         d2 = (diff * diff).sum(dim=-1)
@@ -287,4 +308,9 @@ def _finalize(object_points, errors, ok, dedupe_eps):
         ok = ok & ~clash.any(dim=-1)
         errors = torch.where(ok, errors, _INF)
     object_points = torch.where(ok[..., None], object_points, 0.0)
-    return {"object_points": object_points, "errors": errors, "valid": ok}
+    out = {"object_points": object_points, "errors": errors, "valid": ok}
+    if obs is not None:
+        obs_mask = obs_mask & ok[..., None]
+        out["obs"] = torch.where(obs_mask[..., None], obs, 0.0)
+        out["obs_mask"] = obs_mask
+    return out

@@ -99,3 +99,12 @@ def reprojection_errors(points_px, X, Ps, mask):
     err = (sq * m).sum(dim=-1) / torch.clamp_min(2.0 * n_vis, 1.0)
     valid = n_vis >= 2
     return torch.where(valid, err, torch.full_like(err, float("inf")))
+
+
+def reproject(X, Ps):
+    """Project (N, 3) world points through (C, 3, 4) -> (N, C, 2) pixels."""
+    Xh = torch.cat([X, torch.ones_like(X[..., :1])], dim=-1)
+    proj = torch.einsum("cij,nj->nci", Ps, Xh)
+    z = proj[..., 2]
+    z_safe = torch.where(torch.abs(z) < 1e-12, torch.full_like(z, 1e-12), z)
+    return proj[..., :2] / z_safe[..., None]

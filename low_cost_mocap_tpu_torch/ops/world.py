@@ -1,13 +1,24 @@
-"""Camera-frame -> world-frame transform of triangulated points.
+"""World-frame tools: camera->world transform, floor fit, origin, scale.
 
-Counterpart of ``low_cost_mocap_tpu/ops/world.py:to_world``: flip x and y,
-homogenise, multiply by the 4x4 to-world matrix in full float32,
-dehomogenise, swap y and z.
+Counterpart of ``low_cost_mocap_tpu/ops/world.py``.  ``to_world`` applies
+the reference's conversion: flip x and y, homogenise, multiply by the 4x4
+to-world matrix in full float32, dehomogenise, swap y and z.
+``fit_floor`` levels the floor plane, ``set_origin`` moves the origin and
+``determine_scale`` takes the metric scale from the wand.
+
+``fit_floor``'s plane fit is ``torch.linalg.lstsq`` solved by ``gels`` on
+every device (the only solver CUDA has for it), which needs a full-rank
+N x 3 system.  On a sound floor cloud it agrees with the JAX package's
+SVD-based solve; on a degenerate one (fewer than three points, or all of
+them collinear) JAX returns the minimum-norm plane and this returns
+non-finite or arbitrary values.
 """
 
 from __future__ import annotations
 
 import torch
+
+from low_cost_mocap_tpu_torch.ops.rotations import hat
 
 
 def to_world(points, to_world_matrix):
@@ -19,3 +30,51 @@ def to_world(points, to_world_matrix):
     w = ph @ to_world_matrix.to(points.dtype).T
     w = w[..., :3] / w[..., 3:4]
     return w[..., [0, 2, 1]]
+
+
+def fit_floor(object_points, to_world_matrix):
+    """The to-world matrix that makes the plane of (N, 3) world-frame floor
+    points (display convention: height is component 1) level: the
+    levelling rotation, found and applied in the pre-swap frame, composed
+    onto the current matrix."""
+    dtype, dev = object_points.dtype, object_points.device
+    q = object_points[:, [0, 2, 1]]                     # pre-swap frame
+    A = torch.stack([q[:, 0], q[:, 1], torch.ones_like(q[:, 0])], dim=-1)
+    fit = torch.linalg.lstsq(A, q[:, 2:3], driver="gels").solution
+    a, b = fit[0, 0], fit[1, 0]
+    n = torch.stack([-a, -b, torch.ones_like(a)])
+    n = n / torch.linalg.vector_norm(n)
+    up = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev)
+    # Rodrigues rotation taking n to up
+    v = torch.linalg.cross(n, up)
+    s2 = (v * v).sum()
+    c = torch.dot(n, up)
+    V = hat(v)
+    eye = torch.eye(3, dtype=dtype, device=dev)
+    R = eye + V + V @ V * (1.0 - c) / torch.clamp_min(s2, 1e-12)
+    R = torch.where(s2 < 1e-12, eye, R)
+    T = torch.eye(4, dtype=dtype, device=dev)
+    T = torch.cat([torch.cat([R, T[:3, 3:]], dim=1), T[3:]], dim=0)
+    return T @ to_world_matrix.to(dtype)
+
+
+def set_origin(object_point, to_world_matrix):
+    """Shift the world origin to the (3,) world-frame ``object_point``,
+    which is swapped y/z back into the pre-swap frame first."""
+    p = object_point[[0, 2, 1]]
+    T = torch.eye(4, dtype=to_world_matrix.dtype, device=to_world_matrix.device)
+    T = torch.cat([torch.cat([T[:3, :3], -p[:, None].to(T.dtype)], dim=1),
+                   T[3:]], dim=0)
+    return T @ to_world_matrix
+
+
+def determine_scale(pair_points, ts, wand_length: float = 0.15):
+    """Metric scale from observed wand marker pairs.
+
+    pair_points: (F, 2, 3), the two wand markers over F frames; ts: (C, 3)
+    camera translations.  Returns (scale_factor, scaled ts).
+    """
+    d = torch.linalg.vector_norm(pair_points[:, 0] - pair_points[:, 1],
+                                 dim=-1)
+    scale = wand_length / d.mean()
+    return scale, ts * scale

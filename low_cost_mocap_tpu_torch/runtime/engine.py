@@ -25,15 +25,21 @@ buffer is issued without blocking, an event is recorded after it, and the
 row is read ``d`` frames (or batches) later, once its event has completed.
 ``batch_emit_thread`` hands dispatched batches to a worker thread that
 waits on their events, decodes and emits, and launches nothing on the
-card.
+card.  Every path serves with the matcher's observations (``with_obs``),
+which live recalibration collects.
+
+The calibration workflow runs on the engine's device: extrinsics from a
+wand capture (RANSAC pose bootstrap + bundle adjustment), scale, floor and
+origin, live refinement from the served frames' observations, and
+intrinsics from a dot-grid target.  ``run-trajectory`` drips a planned
+trajectory to the drone link, one tick per decoded frame.
 
 No path changes quietly: a native library that does not build raises, and
 a CPU engine is only ever one the caller asked for (``device="cpu"``).
 
 Not ported yet (their events raise ``NotImplementedError``, which the
-server returns to the client): the calibration handlers, rigid-body
-templates, recording and profiling, and trajectory execution.  Mesh mode
-(camera-sharded serving) raises too.
+server returns to the client): rigid-body templates, recording and
+profiling.  Mesh mode (camera-sharded serving) raises too.
 """
 
 from __future__ import annotations
@@ -48,9 +54,11 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from low_cost_mocap_tpu_torch.config import EngineConfig, RigConfig
+from low_cost_mocap_tpu_torch.config import (CameraIntrinsics, EngineConfig,
+                                             RigConfig)
 from low_cost_mocap_tpu_torch.control import bindings
 from low_cost_mocap_tpu_torch.device import resolve_device
+from low_cost_mocap_tpu_torch.models import calibrator
 from low_cost_mocap_tpu_torch.models.pipeline import (frame_step,
                                                       pack_outputs,
                                                       row_length,
@@ -58,26 +66,22 @@ from low_cost_mocap_tpu_torch.models.pipeline import (frame_step,
                                                       track_from_blobs,
                                                       unpack_outputs,
                                                       unpack_outputs_batch)
+from low_cost_mocap_tpu_torch.ops import ba as ba_ops
 from low_cost_mocap_tpu_torch.ops import camera as cam_ops
-from low_cost_mocap_tpu_torch.ops import correspond, kalman
+from low_cost_mocap_tpu_torch.ops import correspond, intrinsics, kalman
+from low_cost_mocap_tpu_torch.ops import triangulate as tri_ops
+from low_cost_mocap_tpu_torch.ops import world
 from low_cost_mocap_tpu_torch.ops.detect import (sparse_ingest,
                                                  threshold_cutoff)
 from low_cost_mocap_tpu_torch.runtime.health import CameraHealthMonitor
 from low_cost_mocap_tpu_torch.utils import artifacts
 from low_cost_mocap_tpu_torch.utils.profiling import StageTimer
 
-# reference events whose handlers belong to later slices of the port
+# events whose handlers belong to later slices of the port
 _NOT_PORTED = {
-    "calculate-camera-pose": "calibration",
-    "determine-scale": "calibration",
-    "acquire-floor": "calibration",
-    "set-origin": "calibration",
-    "refine-camera-pose": "calibration",
-    "calibrate-intrinsics": "calibration",
     "learn-body-template": "rigid-body templates",
     "record-frames": "recording",
     "capture-profile": "profiling",
-    "run-trajectory": "trajectory execution",
 }
 
 
@@ -182,6 +186,18 @@ class Engine:
         self.to_world_matrix = np.eye(4, dtype=np.float32)
         self.drone_armed = [False] * rig.num_objects
         self.captured_points: list = []
+        # run-trajectory's state machine and refine-camera-pose's
+        # collection are advanced by the thread that emits frames (the
+        # capture loop, or the emit worker) and started and stopped by
+        # server threads: both sit under _live_lock.  A lock rather than
+        # handing the ticks back to the capture thread, because a tick needs
+        # its frame's decoded outputs, which only the emitting thread has,
+        # in frame order.  Reentrant: a tick emits, and a listener may
+        # answer with an event of its own.
+        self._live_lock = threading.RLock()
+        self._traj: dict | None = None
+        self._refine_obs: list | None = None
+        self._intrinsics_capture: dict | None = None
         self.artifacts_dir = artifacts_dir
         if artifacts_dir:
             # persisted intrinsics replace the rig's before K is built
@@ -214,13 +230,14 @@ class Engine:
             marker_dist2=rig.marker_dist_long,
             marker_tol=rig.marker_dist_tol,
             marker_side_min=rig.marker_side_min,
-            kalman_report=cfg.kalman_report)
+            kalman_report=cfg.kalman_report,
+            with_obs=True)
         self._step_kw = dict(threshold=cfg.detect_threshold,
                              max_blobs=cfg.max_blobs, cc_iters=cfg.cc_iters,
                              do_preprocess=False, **self._tail_kw)
         self._cutoff = threshold_cutoff(cfg.detect_threshold)
         C, K, O = rig.num_cameras, cfg.max_blobs, rig.num_objects
-        self._layout = (C, K, O)
+        self._layout = (C, K, O, True)     # rows carry the observations
         # host buffers: host-detect ingest (one frame set, or two batches
         # so one fills while the other's upload may be in flight) and
         # readback rows; the row ring outlasts the deepest pipeline plus
@@ -228,11 +245,11 @@ class Engine:
         self._ingest_ring = None
         if self._batch > 1:
             self._ingest_ring = _HostRing(2, (self._batch, C, K, 3), dev)
-            rows_shape = (self._batch, row_length(C, K, O))
+            rows_shape = (self._batch, row_length(*self._layout))
         else:
             if self._host_detect:
                 self._ingest_ring = _HostRing(4, (C, K, 3), dev)
-            rows_shape = (row_length(C, K, O),)
+            rows_shape = (row_length(*self._layout),)
         self._row_ring = _HostRing(max(cfg.readback_pipeline_depth, 4) + 2,
                                    rows_shape, dev)
         self._pending: collections.deque = collections.deque()
@@ -334,6 +351,379 @@ class Engine:
             self.flush_batches()
             self.is_capturing_points = False
             self.is_triangulating_points = False
+
+    def handle_calculate_camera_pose(self, data):
+        # computer_code/api/index.py:229-277
+        raw = data["cameraPoints"]   # (frames, cameras, 2) with None entries
+        C = self.rig.num_cameras
+        pts = np.zeros((len(raw), C, 2), np.float32)
+        mask = np.zeros((len(raw), C), bool)
+        for f, per_cam in enumerate(raw):
+            for c, p in enumerate(per_cam):
+                if p is not None and p[0] is not None:
+                    pts[f, c] = p
+                    mask[f, c] = True
+
+        def progress(Rs_i, ts_i, iters_done):
+            # intermediate poses between BA chunks, as the reference streams
+            # them on every residual evaluation
+            self.emit("camera-pose", {
+                "error": None,
+                "camera_poses": camera_poses_to_serializable(Rs_i, ts_i),
+                "ba_iters": int(iters_done),
+            })
+
+        # seeded afresh for every capture, as the JAX engine's PRNGKey(0)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(0)
+        res = calibrator.calibrate(
+            torch.as_tensor(pts, device=self.device),
+            torch.as_tensor(mask, device=self.device), self._K,
+            ransac_iters=self.cfg.ransac_iters,
+            threshold_px=self.cfg.ransac_threshold_px,
+            ba_iters=self.cfg.ba_max_iters, progress_cb=progress,
+            generator=gen)
+        Rs, ts = res.Rs.cpu().numpy(), res.ts.cpu().numpy()
+        self.set_camera_poses(Rs, ts)
+        self.emit("camera-pose", {
+            "error": float(res.mean_error),
+            "camera_poses": camera_poses_to_serializable(Rs, ts),
+        })
+
+    def handle_determine_scale(self, data):
+        # computer_code/api/index.py:290-309
+        pairs = np.asarray([p for p in data["objectPoints"] if len(p) == 2],
+                           np.float32)
+        Rs, ts = serializable_to_camera_poses(data["cameraPoses"])
+        _, ts2 = world.determine_scale(
+            torch.as_tensor(pairs, device=self.device),
+            torch.as_tensor(ts, device=self.device),
+            wand_length=self.rig.wand_length)
+        ts2 = ts2.cpu().numpy()
+        self.set_camera_poses(Rs, ts2)
+        self.emit("camera-pose", {
+            "error": None,
+            "camera_poses": camera_poses_to_serializable(Rs, ts2),
+        })
+
+    def handle_acquire_floor(self, data):
+        # computer_code/api/index.py:158-194, with the levelling rotation
+        # applied consistently (ops/world.py:fit_floor)
+        pts = np.asarray([p for sub in data["objectPoints"] for p in sub],
+                         np.float32)
+        M = world.fit_floor(torch.as_tensor(pts, device=self.device),
+                            torch.as_tensor(self.to_world_matrix,
+                                            device=self.device)).cpu().numpy()
+        self.set_to_world_matrix(M)
+        self.emit("to-world-coords-matrix",
+                  {"to_world_coords_matrix": M.tolist()})
+
+    def handle_set_origin(self, data):
+        # computer_code/api/index.py:197-210
+        M = world.set_origin(
+            torch.as_tensor(np.asarray(data["objectPoint"], np.float32),
+                            device=self.device),
+            torch.as_tensor(np.asarray(data["toWorldCoordsMatrix"],
+                                       np.float32),
+                            device=self.device)).cpu().numpy()
+        self.set_to_world_matrix(M)
+        self.emit("to-world-coords-matrix",
+                  {"to_world_coords_matrix": M.tolist()})
+
+    def handle_refine_camera_pose(self, data):
+        """Live recalibration from the matcher's observations collected
+        while tracking runs.
+
+        start: collect the winners' observations of every served frame's
+        valid points.  stop: bundle-adjust the extrinsics (focals pinned)
+        from the current poses over the collected points, keep camera 0's
+        absolute pose and the total baseline length, apply, and emit
+        ``camera-pose`` with the refined error."""
+        if data["startOrStop"] == "start":
+            with self._live_lock:
+                self._refine_obs = []
+            return
+        with self._live_lock:
+            obs_frames, self._refine_obs = self._refine_obs, None
+        if self.camera_poses is None:
+            self.emit("camera-pose", {"error": None,
+                                      "refine_error": "not calibrated"})
+            return
+        C = self.rig.num_cameras
+        pts = (np.concatenate([o for o, _ in obs_frames])
+               if obs_frames else np.zeros((0, C, 2), np.float32))
+        msk = (np.concatenate([m for _, m in obs_frames])
+               if obs_frames else np.zeros((0, C), bool))
+        keep = msk.sum(axis=1) >= 2
+        pts, msk = pts[keep], msk[keep]
+        if len(pts) < 24:
+            self.emit("camera-pose", {
+                "error": None,
+                "refine_error": f"only {len(pts)} usable points"})
+            return
+        Rs0, ts0 = self.camera_poses
+        # BA anchors camera 0 at identity: gauge the poses into camera 0's
+        # frame, refine, and un-gauge, so that camera 0's absolute pose (and
+        # the world matrix made under it) stays the anchor
+        R0, t0 = np.asarray(Rs0[0]), np.asarray(ts0[0]).reshape(3)
+        Rs_g = np.einsum("cij,kj->cik", np.asarray(Rs0), R0)   # R_i R0ᵀ
+        ts_g = (np.asarray(ts0).reshape(-1, 3)
+                - np.einsum("cij,j->ci", Rs_g, t0))
+        dev = self.device
+        pts_t = torch.as_tensor(pts, device=dev)
+        msk_t = torch.as_tensor(msk, device=dev)
+        K = self._K
+        res = ba_ops.bundle_adjust(
+            pts_t, msk_t, K, torch.as_tensor(Rs_g.astype(np.float32),
+                                             device=dev),
+            torch.as_tensor(ts_g.astype(np.float32), device=dev),
+            num_cameras=C, max_iters=self.cfg.ba_max_iters,
+            ftol=self.cfg.ba_ftol, freeze_focals=True)
+        Rg, tg = res.Rs.cpu().numpy(), res.ts.cpu().numpy()
+        # the free-point BA's scale gauge is re-anchored, so the wand's
+        # metric scale cannot drift over repeated refinements
+        norm0 = float(np.linalg.norm(ts_g[1:], axis=-1).sum())
+        norm1 = float(np.linalg.norm(tg[1:], axis=-1).sum())
+        if norm1 > 1e-9 and norm0 > 1e-9:
+            tg = tg * (norm0 / norm1)
+        Rs = np.einsum("cij,jk->cik", Rg, R0)
+        ts = tg + np.einsum("cij,j->ci", Rg, t0)
+        Ps = cam_ops.projection_matrix(
+            K, torch.as_tensor(Rs, device=dev),
+            torch.as_tensor(ts.astype(np.float32), device=dev))
+        X, _ = tri_ops.triangulate_points(pts_t, Ps, msk_t)
+        errs = tri_ops.reprojection_errors(pts_t, X, Ps, msk_t)
+        mean_err = float(np.sqrt(np.mean(errs.cpu().numpy())))
+        self.set_camera_poses(Rs, ts)
+        self.emit("camera-pose", {
+            "error": mean_err,
+            "camera_poses": camera_poses_to_serializable(Rs, ts),
+            "refined_from_points": int(len(pts)),
+        })
+
+    def handle_calibrate_intrinsics(self, data):
+        """Intrinsic calibration from a handheld dot-grid target
+        (``ops/intrinsics.py``, Zhang's method).
+
+        start: ``{"startOrStop": "start", "cameraIndex": c, "rows": r,
+        "cols": k, "spacing": m}``; every frame in which camera ``c`` sees
+        exactly r*k blobs that order into a grid, with the board moved
+        since the last view kept, is kept as a view (``intrinsics-views``
+        events).  stop: calibrate over the views, emit
+        ``camera-intrinsics`` ``{K, dist, rms_px, views}``, apply to the rig
+        (unless ``"apply": false``) and persist."""
+        if data["startOrStop"] == "start":
+            rows = int(data.get("rows", 4))
+            cols = int(data.get("cols", 5))
+            spacing = float(data.get("spacing", 0.03))
+            self._intrinsics_capture = {
+                "camera": int(data.get("cameraIndex", 0)),
+                "rows": rows, "cols": cols, "spacing": spacing,
+                "board": intrinsics.make_grid(rows, cols, spacing),
+                "min_sep_px": float(data.get("minSeparationPx", 8.0)),
+                "max_views": int(data.get("maxViews", 40)),
+                "views": [],
+            }
+            return
+        cap, self._intrinsics_capture = self._intrinsics_capture, None
+        if cap is None or len(cap["views"]) < 3:
+            n = 0 if cap is None else len(cap["views"])
+            self.emit("camera-intrinsics", {
+                "error": f"only {n} usable views captured (need >= 3); "
+                         "move the board through varied tilts"})
+            return
+        res = intrinsics.calibrate_intrinsics(cap["board"],
+                                              np.stack(cap["views"]),
+                                              device=self.device)
+        K = res.K.cpu().numpy().astype(np.float64)
+        dist = res.dist.cpu().numpy().astype(np.float64)
+        if not (np.isfinite(K).all() and np.isfinite(dist).all()):
+            self.emit("camera-intrinsics",
+                      {"error": "calibration diverged; recapture"})
+            return
+        payload = {
+            "cameraIndex": cap["camera"],
+            "K": K.tolist(),
+            "dist": dist.tolist(),
+            "rms_px": float(res.rms_px),
+            "views": len(cap["views"]),
+            "error": None,
+        }
+        if data.get("apply", True):
+            self._apply_intrinsics(cap["camera"], K, dist)
+            payload["applied"] = True
+        self.emit("camera-intrinsics", payload)
+
+    def _intrinsics_step(self, frames: np.ndarray) -> None:
+        """Per-frame hook of calibrate-intrinsics: native host detection on
+        the target camera (with a budget of rows*cols + 8 blobs, whatever
+        ``max_blobs``), grid ordering, and a movement gate."""
+        cap = self._intrinsics_capture
+        if cap is None or len(cap["views"]) >= cap["max_views"]:
+            return
+        c, rows, cols = cap["camera"], cap["rows"], cap["cols"]
+        n = rows * cols
+        try:
+            blobs, valid, _ = bindings.ingest_detect(
+                np.ascontiguousarray(frames[c:c + 1]),
+                threshold_cutoff(self.cfg.detect_threshold), n + 8,
+                weighted=self.cfg.weighted_centroids)
+        except RuntimeError as e:     # the native library did not build
+            self._intrinsics_capture = None
+            self.emit("camera-intrinsics",
+                      {"error": f"native detector unavailable: {e}"})
+            return
+        pts = blobs[0][valid[0].astype(bool)]
+        if len(pts) != n:
+            return
+        order, _ = intrinsics.order_grid(pts, rows, cols)
+        if order is None:
+            return
+        ordered = pts[order].astype(np.float32)
+        if cap["views"]:
+            sep = float(np.linalg.norm(
+                ordered - cap["views"][-1], axis=-1).mean())
+            if sep < cap["min_sep_px"]:
+                return                      # the board has not moved enough
+        cap["views"].append(ordered)
+        self.emit("intrinsics-views",
+                  {"camera": c, "views": len(cap["views"])})
+
+    def _apply_intrinsics(self, camera_index: int, K: np.ndarray,
+                          dist: np.ndarray) -> None:
+        """Install one camera's calibrated intrinsics: the rig, K and dist
+        on the device, the projection matrices and pairwise fundamentals,
+        and the persisted artifact."""
+        cams = list(self.rig.cameras)
+        cams[camera_index] = CameraIntrinsics(
+            intrinsic_matrix=tuple(tuple(float(x) for x in row)
+                                   for row in K),
+            distortion_coef=tuple(float(x) for x in dist),
+            rotation=cams[camera_index].rotation)
+        rig = dataclasses.replace(self.rig, cameras=tuple(cams))
+        K_dev = torch.as_tensor(rig.K_stack(), device=self.device)
+        dist_dev = torch.as_tensor(rig.dist_stack(), device=self.device)
+        with self._model_lock:
+            self.rig = rig
+            self._K, self._dist = K_dev, dist_dev
+            if self.camera_poses is not None:
+                Rs, ts = self.camera_poses
+                self._Ps = cam_ops.projection_matrix(
+                    K_dev, torch.as_tensor(np.asarray(Rs, np.float32),
+                                           device=self.device),
+                    torch.as_tensor(np.asarray(ts, np.float32),
+                                    device=self.device))
+                self._F = correspond._pairwise_fundamentals(self._Ps)
+        self._save_intrinsics_artifact()
+
+    def _save_intrinsics_artifact(self) -> None:
+        if not self.artifacts_dir:
+            return
+        os.makedirs(self.artifacts_dir, exist_ok=True)
+        artifacts.save_intrinsics(
+            os.path.join(self.artifacts_dir, "intrinsics.json"),
+            self.rig.cameras)
+
+    def handle_run_trajectory(self, data):
+        """Fly a planned trajectory with the reference's fly-to-start gate:
+        command every drone to the plan's first setpoint and hold until
+        each tracked position is within ``arrivalTol`` metres, then drip
+        the setpoints at ``timestep`` cadence, one tick per processed
+        frame.  Emits ``trajectory-status``: fly-to-start -> executing ->
+        done (or aborted / stopped)."""
+        if data.get("startOrStop") == "stop":
+            with self._live_lock:
+                if self._traj is not None:
+                    self._traj = None
+                    self.emit("trajectory-status", {"phase": "stopped"})
+            return
+        sps = [[float(x) for x in sp] for sp in data["setpoints"]]
+        n = self.rig.num_objects
+        if not sps or any(len(sp) != 3 * n for sp in sps):
+            raise ValueError(
+                f"setpoints must be non-empty rows of {3 * n} floats")
+        timestep = float(data.get("timestep", 0.05))
+        if not timestep > 0.0:
+            raise ValueError(f"timestep must be positive, got {timestep}")
+        drones = [int(d) for d in data.get("droneIndices", range(n))]
+        if any(not 0 <= d < n for d in drones):
+            raise ValueError(f"droneIndices out of range 0..{n - 1}: {drones}")
+        with self._live_lock:
+            self._traj = {
+                "setpoints": sps,
+                "timestep": timestep,
+                "drones": drones,
+                "tol": float(data.get("arrivalTol", 0.15)),
+                "timeout": float(data.get("arrivalTimeout", 20.0)),
+                "phase": "fly-to-start", "t": 0.0, "idx": -1,
+                "wait": 0.0, "resend": 0.0,
+            }
+            for d in drones:
+                self.link.send(d, {"setpoint": sps[0][3 * d:3 * d + 3]})
+            self.emit("trajectory-status",
+                      {"phase": "fly-to-start", "setpoints": len(sps)})
+
+    def _advance_trajectory(self, out, dt: float) -> None:
+        """One tick of the run-trajectory state machine, per processed
+        frame; ``out`` gives the tracked positions for the arrival gate."""
+        if self._traj is None:
+            return
+        with self._live_lock:
+            tr = self._traj
+            if tr is None:
+                return
+            sps = tr["setpoints"]
+            if tr["phase"] == "fly-to-start":
+                tr["wait"] += dt
+                tr["resend"] += dt
+                tv, tp = out.tracked.valid, out.tracked.pos
+                arrived = True
+                for d in tr["drones"]:
+                    target = np.asarray(sps[0][3 * d:3 * d + 3])
+                    if not (d < len(tv) and tv[d]):
+                        arrived = False
+                        break
+                    # engine world [x, up, z] -> firmware [x, y, alt], the
+                    # mapping of the armed pose feed
+                    fw = np.array([tp[d][0], tp[d][2], tp[d][1]])
+                    if np.linalg.norm(fw - target) > tr["tol"]:
+                        arrived = False
+                        break
+                if self._traj is not tr:   # stopped or replaced mid-tick
+                    return
+                if arrived:
+                    tr["phase"] = "executing"
+                    tr["t"] = 0.0
+                    tr["idx"] = 0          # the gate itself asserted sps[0]
+                    self.emit("trajectory-status",
+                              {"phase": "executing",
+                               "waited_s": round(tr["wait"], 3)})
+                elif tr["wait"] > tr["timeout"]:
+                    self._traj = None
+                    self.emit("trajectory-status",
+                              {"phase": "aborted",
+                               "reason": "fly-to-start timeout"})
+                elif tr["resend"] >= 0.5:
+                    # keep asserting the start setpoint
+                    tr["resend"] = 0.0
+                    for d in tr["drones"]:
+                        self.link.send(
+                            d, {"setpoint": sps[0][3 * d:3 * d + 3]})
+                return
+            tr["t"] += dt
+            # drip every index up to the elapsed-time target: never skip a
+            # setpoint to float accumulation (dt == timestep sends them all)
+            target = min(int(tr["t"] / tr["timestep"] + 1e-6), len(sps) - 1)
+            while tr["idx"] < target:
+                if self._traj is not tr:   # stopped or replaced mid-tick
+                    return
+                tr["idx"] += 1
+                for d in tr["drones"]:
+                    self.link.send(
+                        d, {"setpoint": sps[tr["idx"]][3 * d:3 * d + 3]})
+            if tr["idx"] >= len(sps) - 1 and self._traj is tr:
+                self._traj = None
+                self.emit("trajectory-status", {"phase": "done"})
 
     def handle_arm_drone(self, data):
         # computer_code/api/index.py:114-128
@@ -461,17 +851,19 @@ class Engine:
         while True:
             with self._model_lock:
                 if self._batch_pending:
+                    item = self._batch_pending.popleft()
                     with self.timer.stage("batch-decode"):
-                        outs = self._decode_batch(
-                            self._batch_pending.popleft())
+                        outs = self._decode_batch(item)
+                    dts = item[2]
                 elif self._pending:
-                    outs = [unpack_outputs(
-                        self._harvest(self._pending.popleft()),
-                        *self._layout)]
+                    slot, dt = self._pending.popleft()
+                    outs = [unpack_outputs(self._harvest(slot),
+                                           *self._layout)]
+                    dts = [dt]
                 else:
                     return
             with self.timer.stage("batch-emit"):
-                self._emit_batch_outs(outs)
+                self._emit_batch_outs(outs, dts)
 
     def _emit_worker_loop(self) -> None:
         """batch_emit_thread worker: pop dispatched batches in order, wait
@@ -490,7 +882,7 @@ class Engine:
                 with self.timer.stage("batch-decode"):
                     outs = self._decode_batch(item)
                 with self.timer.stage("batch-emit"):
-                    self._emit_batch_outs(outs)
+                    self._emit_batch_outs(outs, item[2])
             except Exception as e:   # a bad batch must not wedge the drain
                 self.emit("engine-error",
                           {"error": f"batch emit worker: {e}"})
@@ -584,6 +976,11 @@ class Engine:
                 self.emit("camera-health",
                           {"camera": int(cam), "status": status})
 
+        if self._intrinsics_capture is not None:
+            # dot-grid capture for calibrate-intrinsics: host detection on
+            # one camera, whatever the mode flags
+            self._intrinsics_step(frames)
+
         if not self.is_capturing_points:
             return None
 
@@ -625,14 +1022,16 @@ class Engine:
                 slot = self._readback(pack_outputs(out))
             depth = self.cfg.readback_pipeline_depth
             if depth > 0:
-                self._pending.append(slot)
+                # each row keeps its own frame's dt for the trajectory tick
+                self._pending.append((slot, dt))
                 if len(self._pending) <= depth:
                     return None
-                slot = self._pending.popleft()
+                slot, dt = self._pending.popleft()
             with self.timer.stage("readback"):
                 out = unpack_outputs(self._harvest(slot), *self._layout)
 
         self._emit_frame_outputs(out)
+        self._advance_trajectory(out, float(dt))
         with self._frame_lock:
             self._last_out = out
         return out
@@ -678,8 +1077,9 @@ class Engine:
                     self._kalman_state, blobs[..., :2], blobs[..., 2] > 0.5,
                     dl, self._Ps, self._K, self._dist, self._M, self._F,
                     **self._tail_kw)
-                # the row layout is snapshotted with the rows it describes
-                item = (self._readback(rows), self._layout)
+                # the row layout is snapshotted with the rows it describes,
+                # the dts go along for the trajectory ticks
+                item = (self._readback(rows), self._layout, dl)
             if self._emit_worker is not None:
                 # the worker waits for the readback, decodes and emits;
                 # the capture loop never blocks on a readback
@@ -700,17 +1100,18 @@ class Engine:
             with self.timer.stage("batch-decode"):
                 outs = self._decode_batch(item)
         with self.timer.stage("batch-emit"):
-            return self._emit_batch_outs(outs)
+            return self._emit_batch_outs(outs, item[2])
 
     def _decode_batch(self, item) -> list:
-        slot, layout = item
+        slot, layout, _ = item
         return unpack_outputs_batch(self._harvest(slot), *layout)
 
-    def _emit_batch_outs(self, outs: list):
-        """Emit outputs in frame order (outside the model lock) and return
-        the newest."""
-        for o in outs:
+    def _emit_batch_outs(self, outs: list, dts):
+        """Emit outputs in frame order (outside the model lock), one
+        trajectory tick each, and return the newest."""
+        for o, dt in zip(outs, dts):
             self._emit_frame_outputs(o)
+            self._advance_trajectory(o, float(dt))
         with self._frame_lock:
             self._last_out = outs[-1]
         return outs[-1]
@@ -736,6 +1137,17 @@ class Engine:
                 self.captured_points.append(image_points)
                 self.emit("image-points", image_points)
         elif self.is_triangulating_points:
+            pv = out.point_valid
+            if pv.any():
+                with self._live_lock:
+                    # live recalibration keeps this frame's valid points'
+                    # observations (capped, so that a refinement never
+                    # stopped cannot grow without bound)
+                    obs = self._refine_obs
+                    if (obs is not None
+                            and sum(len(o) for o, _ in obs) < 4096):
+                        obs.append((out.point_obs[pv],
+                                    out.point_obs_mask[pv]))
             # payloads are built only for listeners; the armed pose feed
             # runs at full rate regardless
             want_payload = bool(self._listeners.get("object-points"))
@@ -780,7 +1192,6 @@ class Engine:
                         })
             if not want_payload:
                 return
-            pv = out.point_valid
             self.emit("object-points", {
                 "object_points": out.object_points[pv].tolist(),
                 "errors": out.point_errors[pv].tolist(),

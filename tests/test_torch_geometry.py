@@ -221,3 +221,30 @@ def test_world_and_rigid_match_jax():
     for name in ("pos", "heading", "error"):
         np.testing.assert_allclose(getattr(got, name)[0].numpy(),
                                    np.asarray(getattr(want, name)), **TOL)
+
+
+@pytest.mark.parametrize("seed,dup", [(0, False), (2, True), (3, True)])
+def test_match_points_observations_match_jax(seed, dup):
+    """``with_obs``: the winners' per-camera observations, also on scenes
+    with duplicated blobs (finite ties, ghost roots): the mask exactly
+    equal, the pixels within 1e-5; a batch of two frames gives each
+    frame's own."""
+    blobs, valid, Ps, Fs = _scene(seed, dup=dup)
+    want = jcorr.match_points(jnp.asarray(blobs), jnp.asarray(valid),
+                              jnp.asarray(Ps), Fs=jnp.asarray(Fs),
+                              with_obs=True)
+    got = correspond.match_points(_t(blobs), _t(valid), _t(Ps), Fs=_t(Fs),
+                                  with_obs=True)
+    np.testing.assert_array_equal(got["obs_mask"].numpy(),
+                                  np.asarray(want["obs_mask"]))
+    np.testing.assert_allclose(got["obs"].numpy(), np.asarray(want["obs"]),
+                               **TOL)
+    assert got["obs_mask"].shape == (32, 4) and got["obs"].shape == (32, 4, 2)
+    assert (got["obs_mask"].sum(-1)[got["valid"]] >= 2).all()
+    assert not got["obs_mask"][~got["valid"]].any()
+    b2, v2, _, _ = _scene(seed + 10, dup=dup)
+    both = correspond.match_points(_t(np.stack([blobs, b2])),
+                                   _t(np.stack([valid, v2])), _t(Ps),
+                                   Fs=_t(Fs), with_obs=True)
+    for key in ("obs", "obs_mask", "valid"):
+        assert torch.equal(both[key][0], got[key])

@@ -155,6 +155,59 @@ def test_batched_matches_per_frame(impl):
         np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
 
 
+def test_rows_with_observations_match_jax_and_batched_equals_per_frame():
+    """Rows with the matcher's observations: the port's per-frame rows
+    against JAX's ``frame_step(with_obs=True)`` rows (discrete fields and
+    the observation mask equal, floats within TOL), and the batched rows'
+    observations bitwise equal to the per-frame rows'."""
+    rig, cfg, calib, jcal, src, tail = _setup()
+    C, K, O = rig.num_cameras, cfg.max_blobs, rig.num_objects
+    N = C * K
+    kw = dict(threshold=cfg.detect_threshold, max_blobs=K,
+              cc_iters=cfg.cc_iters, do_preprocess=False, with_obs=True,
+              **tail)
+    jstep = jax.jit(lambda st, f, dt: (lambda r: (r[0], jpipe.pack_outputs(
+        r[1])))(jpipe.frame_step(st, f, dt, *jcal, use_pallas=False, **kw)))
+    jst, st = jkalman.init_state(O), kalman.init_state(O, device="cpu")
+    got, want = [], []
+    for i in range(6):
+        frames = src.read_at(i / 60)
+        jst, row = jstep(jst, jnp.asarray(frames), np.float32(1 / 60))
+        want.append(np.asarray(row))
+        st, out = pipeline.frame_step(st, torch.from_numpy(frames),
+                                      np.float32(1 / 60), *_cal(calib), **kw)
+        got.append(pipeline.pack_outputs(out).numpy())
+    got, want = np.stack(got), np.stack(want)
+    L = pipeline.row_length(C, K, O, with_obs=True)
+    assert got.shape == want.shape == (6, L)
+    assert L == pipeline.row_length(C, K, O) + N * C * 3
+    _assert_rows(got[:, :L - N * C * 3], want[:, :L - N * C * 3], C, K, O)
+    dec = pipeline.unpack_outputs_batch(got, C, K, O, with_obs=True)
+    jdec = jpipe.unpack_outputs_batch(want, C, K, O, with_obs=True)
+    for g, w in zip(dec, jdec):
+        np.testing.assert_array_equal(g.point_obs_mask, w.point_obs_mask)
+        np.testing.assert_allclose(g.point_obs, w.point_obs, **TOL)
+        assert g.point_obs_mask[g.point_valid].sum(-1).min() >= 2
+    one = pipeline.unpack_outputs(got[-1], C, K, O, with_obs=True)
+    np.testing.assert_array_equal(one.point_obs, dec[-1].point_obs)
+
+    blobs, valid, dts = _blob_batch(src, cfg, 6, t0=30)
+    tail_obs = dict(tail, with_obs=True)
+    _, rows = pipeline.scan_track_from_blobs(
+        kalman.init_state(O, device="cpu"), blobs, valid, dts, *_cal(calib),
+        **tail_obs)
+    st, per = kalman.init_state(O, device="cpu"), []
+    for i in range(len(dts)):
+        st, out = pipeline.track_from_blobs(st, blobs[i], valid[i], dts[i],
+                                            *_cal(calib), **tail_obs)
+        per.append(pipeline.pack_outputs(out))
+    per = torch.stack(per).numpy()
+    np.testing.assert_array_equal(rows.numpy()[:, -N * C * 3:],
+                                  per[:, -N * C * 3:])
+    _assert_rows(rows.numpy()[:, :L - N * C * 3], per[:, :L - N * C * 3],
+                 C, K, O)
+
+
 def test_engine_end_to_end_on_cpu_matches_jax_engine():
     from low_cost_mocap_tpu.runtime.engine import Engine as JEngine
     from low_cost_mocap_tpu.runtime.serial_link import CollectingLink
@@ -229,7 +282,7 @@ def test_unported_options_raise():
                           link, device="cpu")
     frames = torch.from_numpy(src.read_at(0.0))
     for opt in (dict(do_preprocess=True),
-                dict(do_preprocess=False, with_obs=True)):
+                dict(do_preprocess=False, body_template=object())):
         with pytest.raises(NotImplementedError):
             pipeline.frame_step(
                 kalman.init_state(2, device="cpu"), frames, 1 / 60,

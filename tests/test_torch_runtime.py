@@ -395,8 +395,8 @@ def test_frame_strip_marks_blobs_and_epilines():
 def test_unported_and_unknown_events_and_options_raise():
     Rs, ts, rig, src = _rig_source()
     eng = _cpu_engine(rig, EngineConfig(), src)
-    for event in ("calculate-camera-pose", "learn-body-template",
-                  "record-frames", "run-trajectory"):
+    for event in ("capture-profile", "learn-body-template",
+                  "record-frames"):
         with pytest.raises(NotImplementedError, match="not ported"):
             eng.handle(event, {})
     with pytest.raises(KeyError, match="bogus"):
@@ -541,3 +541,251 @@ def test_pseyepy_source_layout_and_settings_through_the_engine(monkeypatch):
     assert src._cam.exposure == [55, 55] and src._cam.gain == [3, 3]
     src.close()
     assert src._cam.ended
+
+
+# ---------------------------------------------------------------- calibration
+
+
+def _wand_capture(rig, Rs, ts, n=50, seed=0):
+    """A captured wand sweep, one dot per camera per frame, in the
+    ``cameraPoints`` wire shape (None where a camera missed it)."""
+    rng = np.random.default_rng(seed)
+    X = syn.random_points(rng, n)
+    pts, mask = syn.observe(X, Rs, ts, rig, noise_px=0.3, rng=rng)
+    return [[pts[f, c].tolist() if mask[f, c] else [None, None]
+             for c in range(rig.num_cameras)] for f in range(n)]
+
+
+def _jax_engine(rig, **cfg):
+    from low_cost_mocap_tpu.config import EngineConfig as JEngineConfig
+    from low_cost_mocap_tpu.config import RigConfig as JRigConfig
+    from low_cost_mocap_tpu.runtime.engine import Engine as JEngine
+    from low_cost_mocap_tpu.runtime.serial_link import \
+        CollectingLink as JCollectingLink
+
+    return JEngine(JRigConfig(num_cameras=rig.num_cameras,
+                              image_size=rig.image_size),
+                   JEngineConfig(**cfg), None, JCollectingLink(),
+                   fast_path=False)
+
+
+def _rel_rots(poses):
+    Rs = np.asarray([p["R"] for p in poses])
+    return np.einsum("cij,kj->cik", Rs, Rs[0])
+
+
+def test_calculate_camera_pose_event_matches_jax_engine():
+    """50 wand frames through both engines: the same progress events
+    (``ba_iters`` 8, 16) and a final event, errors under 1 px², and the
+    same relative rotations (to 1e-2: the two engines draw their RANSAC
+    samples from different generators) — which are the rig's own."""
+    Rs, ts, rig, src = _rig_source()
+    cfg = dict(ransac_iters=128, ba_max_iters=16)
+    captured = _wand_capture(rig, Rs, ts)
+    got = {}
+    for name, eng in (("port", _cpu_engine(rig, EngineConfig(**cfg), src)),
+                      ("jax", _jax_engine(rig, **cfg))):
+        events = []
+        eng.on("camera-pose", events.append)
+        eng.handle("calculate-camera-pose", {"cameraPoints": captured})
+        got[name] = events
+        assert eng.camera_poses is not None
+    port, jax_ = got["port"], got["jax"]
+    assert [e.get("ba_iters") for e in port] == \
+        [e.get("ba_iters") for e in jax_] == [8, 16, None]
+    assert all(e["error"] is None for e in port[:-1])
+    assert port[-1]["error"] < 1.0 and jax_[-1]["error"] < 1.0
+    rel = _rel_rots(port[-1]["camera_poses"])
+    assert np.abs(rel - _rel_rots(jax_[-1]["camera_poses"])).max() < 1e-2
+    truth = np.einsum("cij,kj->cik", Rs, Rs[0])
+    assert np.abs(rel - truth).max() < 1e-2
+    # a fixed seed: the port's engine calibrates the same way every time
+    eng = _cpu_engine(rig, EngineConfig(**cfg), src)
+    again = []
+    eng.on("camera-pose", again.append)
+    eng.handle("calculate-camera-pose", {"cameraPoints": captured})
+    assert again == port
+
+
+def test_scale_floor_and_origin_events_match_jax_engine():
+    Rs, ts, rig, src = _rig_source()
+    rng = np.random.default_rng(1)
+    base = rng.normal(size=(12, 3))
+    d = rng.normal(size=(12, 3))
+    d = d / np.linalg.norm(d, axis=1, keepdims=True) * 0.05
+    pairs = np.stack([base, base + d], axis=1).tolist() + [[[0, 0, 0]]]
+    xy = rng.normal(size=(40, 2))
+    cloud = np.column_stack([xy[:, 0], 0.1 * xy[:, 0] + 0.05 * xy[:, 1] + 0.3,
+                             xy[:, 1]])
+    got = {}
+    for name, eng in (("port", _cpu_engine(rig, EngineConfig(), src)),
+                      ("jax", _jax_engine(rig))):
+        poses, mats = [], []
+        eng.on("camera-pose", poses.append)
+        eng.on("to-world-coords-matrix", mats.append)
+        eng.handle("determine-scale", {
+            "objectPoints": pairs,
+            "cameraPoses": camera_poses_to_serializable(Rs, ts)})
+        eng.handle("acquire-floor", {"objectPoints": [cloud[:20].tolist(),
+                                                      cloud[20:].tolist()]})
+        eng.handle("set-origin", {
+            "objectPoint": [0.1, 0.2, 0.3],
+            "toWorldCoordsMatrix": mats[-1]["to_world_coords_matrix"]})
+        got[name] = (poses, mats, eng.to_world_matrix, eng.camera_poses)
+    (pp, pm, pM, pcp), (jp, jm, jM, jcp) = got["port"], got["jax"]
+    np.testing.assert_allclose(
+        [p["t"] for p in pp[0]["camera_poses"]],
+        [p["t"] for p in jp[0]["camera_poses"]], atol=1e-5)
+    np.testing.assert_allclose(pcp[1], ts * 3.0, rtol=1e-5)   # 0.15 / 0.05
+    assert len(pm) == len(jm) == 2
+    for a, b in zip(pm, jm):
+        np.testing.assert_allclose(a["to_world_coords_matrix"],
+                                   b["to_world_coords_matrix"], atol=1e-5)
+    np.testing.assert_allclose(pM, jM, atol=1e-5)
+
+
+def _perturbed(Rs, ts, seed=7):
+    rng = np.random.default_rng(seed)
+
+    def small_rot(r):
+        a, b, _ = r
+        Rx = np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)],
+                       [0, np.sin(a), np.cos(a)]])
+        Ry = np.array([[np.cos(b), 0, np.sin(b)], [0, 1, 0],
+                       [-np.sin(b), 0, np.cos(b)]])
+        return (Rx @ Ry).astype(np.float32)
+
+    Rs_p = np.stack([small_rot(rng.normal(scale=0.01, size=3)) @ R
+                     for R in Rs]).astype(np.float32)
+    ts_p = (ts + rng.normal(scale=0.01, size=ts.shape)).astype(np.float32)
+    return Rs_p, ts_p
+
+
+def _sweep_frame(i, rig, Rs, ts):
+    """The drone swept through the volume on a script."""
+    phase = 2 * np.pi * i / 40.0
+    pos = np.array([0.35 * np.cos(phase), 0.35 * np.sin(phase),
+                    0.6 + 0.15 * np.sin(2 * phase)], np.float32)
+    pts, mask = syn.observe(syn.drone_markers(pos, 0.0, rig), Rs, ts, rig)
+    return (syn.render_frames(pts, mask, rig.image_size, sigma=0.8)
+            * 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("extra", [
+    dict(), dict(dispatch_batch=5), dict(dispatch_batch=5,
+                                         batch_emit_thread=True)],
+    ids=["per_frame", "batched", "emit_worker"])
+def test_refine_camera_pose_halves_the_error(extra):
+    """Live recalibration from slightly-off poses, as
+    ``tests/test_runtime.py`` checks the JAX engine: the median error of
+    the points served afterwards at least halves.  Batched serving, inline
+    or through the emit worker, collects the same observations and so
+    refines to the same poses as per-frame serving."""
+    Rs, ts, rig = syn.ring_rig(num_cameras=4)
+    Rs_p, ts_p = _perturbed(Rs, ts)
+    frames = [_sweep_frame(i, rig, Rs, ts) for i in range(40)]
+    src = SyntheticSource(rig, Rs, ts, num_drones=0)
+    results = []
+    for cfg in (EngineConfig(), EngineConfig(**extra)):
+        eng = _cpu_engine(rig, cfg, src)
+        events, poses = [], []
+        eng.on("object-points", events.append)
+        eng.on("camera-pose", poses.append)
+        eng.handle("triangulate-points", {
+            "startOrStop": "start",
+            "cameraPoses": camera_poses_to_serializable(Rs_p, ts_p),
+            "toWorldCoordsMatrix": np.eye(4).tolist()})
+        eng.handle("refine-camera-pose", {"startOrStop": "start"})
+        for f in frames[:30]:
+            eng.process_frame(f, 1 / 60)
+        eng.flush_batches()
+        before = float(np.median([e for ev in events for e in ev["errors"]]))
+        eng.handle("refine-camera-pose", {"startOrStop": "stop"})
+        assert len(poses) == 1 and poses[0]["refined_from_points"] >= 30
+        events.clear()
+        for f in frames[30:]:
+            eng.process_frame(f, 1 / 60)
+        eng.flush_batches()
+        eng.stop()
+        after = float(np.median([e for ev in events for e in ev["errors"]]))
+        assert after < before * 0.5, (before, after)
+        assert after < 0.3
+        results.append(poses[0])
+        if not extra:
+            break
+    assert all(r == results[0] for r in results)
+
+
+def test_refine_camera_pose_needs_a_calibration_and_points():
+    Rs, ts, rig, src = _rig_source()
+    eng = _cpu_engine(rig, EngineConfig(), src)
+    poses = []
+    eng.on("camera-pose", poses.append)
+    eng.handle("refine-camera-pose", {"startOrStop": "start"})
+    eng.handle("refine-camera-pose", {"startOrStop": "stop"})
+    assert poses[-1]["refine_error"] == "not calibrated"
+    eng.set_camera_poses(Rs, ts)
+    eng.handle("refine-camera-pose", {"startOrStop": "stop"})
+    assert poses[-1]["refine_error"] == "only 0 usable points"
+
+
+def test_calibrate_intrinsics_event_applies_and_persists(tmp_path):
+    """The calibrate-intrinsics event end to end, as
+    ``tests/test_intrinsics.py`` drives the JAX engine: rendered dot-grid
+    frames in, views with progress events, K within 3% applied to the live
+    rig and persisted, and reloaded by a fresh engine."""
+    cv2 = pytest.importorskip("cv2")
+    from low_cost_mocap_tpu_torch.ops.intrinsics import make_grid
+
+    Rs, ts, rig = syn.ring_rig(num_cameras=2)
+    src = SyntheticSource(rig, Rs, ts, num_drones=0)
+    eng = _cpu_engine(rig, EngineConfig(), src, artifacts_dir=str(tmp_path))
+    eng.set_camera_poses(Rs, ts)
+    rows, cols, spacing = 4, 5, 0.05
+    board = make_grid(rows, cols, spacing).astype(np.float64)
+    obj3 = np.concatenate([board, np.zeros((len(board), 1))], axis=-1)
+    S = rig.image_size
+    K_t = np.array([[0.8 * S, 0.0, S / 2 + 3.0], [0.0, 0.79 * S, S / 2 - 4.0],
+                    [0.0, 0.0, 1.0]])
+    got = {"views": 0, "result": None}
+    eng.on("intrinsics-views", lambda d: got.__setitem__("views", d["views"]))
+    eng.on("camera-intrinsics", lambda d: got.__setitem__("result", d))
+    eng.handle("calibrate-intrinsics",
+               {"startOrStop": "start", "cameraIndex": 0, "rows": rows,
+                "cols": cols, "spacing": spacing})
+    rng = np.random.default_rng(9)
+    fed = 0
+    while fed < 10 and got["views"] < 6:
+        rvec = np.deg2rad(rng.uniform(-25, 25, size=3) * [1, 1, 0.7])
+        t = np.array([-0.10 + rng.uniform(-0.02, 0.02),
+                      -0.08 + rng.uniform(-0.02, 0.02),
+                      rng.uniform(0.5, 0.7)])
+        uv = cv2.projectPoints(obj3, rvec, t, K_t, np.zeros(5))[0].reshape(
+            -1, 2)
+        if not ((uv > 4).all() and (uv < S - 5).all()):
+            continue
+        f0 = syn.render_frames(uv[:, None, :].astype(np.float32),
+                               np.ones((len(uv), 1), bool), S, sigma=1.2)
+        frames = np.zeros((rig.num_cameras, S, S), np.uint8)
+        frames[0] = (f0[0] * 255).astype(np.uint8)
+        eng.process_frame(frames, 1 / 60)
+        fed += 1
+    assert got["views"] >= 3
+    eng.handle("calibrate-intrinsics", {"startOrStop": "stop"})
+    res = got["result"]
+    assert res["error"] is None and res["applied"]
+    K = np.asarray(res["K"])
+    np.testing.assert_allclose(K[0, 0], K_t[0, 0], rtol=0.03)
+    np.testing.assert_allclose(K[1, 1], K_t[1, 1], rtol=0.03)
+    np.testing.assert_allclose(eng.rig.cameras[0].K(), K, rtol=1e-5)
+    np.testing.assert_allclose(eng._K[0].numpy(), K, rtol=1e-5)
+    # the projection matrices follow the new K
+    Ps = eng._K @ torch.cat([torch.as_tensor(Rs),
+                             torch.as_tensor(ts)[..., None]], -1)
+    np.testing.assert_allclose(eng._Ps.numpy(), Ps.numpy(), rtol=1e-6)
+    again = _cpu_engine(rig, EngineConfig(), src, artifacts_dir=str(tmp_path))
+    np.testing.assert_allclose(again.rig.cameras[0].K(), K, rtol=1e-5)
+    # too few views: an error event, nothing applied
+    eng.handle("calibrate-intrinsics", {"startOrStop": "start"})
+    eng.handle("calibrate-intrinsics", {"startOrStop": "stop"})
+    assert "only 0 usable views" in got["result"]["error"]

@@ -218,7 +218,7 @@ def test_polling_upgrade_to_websocket(server):
     ws.close()
 
 
-@pytest.mark.parametrize("event", ["bogus-event", "calculate-camera-pose"])
+@pytest.mark.parametrize("event", ["bogus-event", "capture-profile"])
 def test_unknown_and_unported_events_return_server_error(server, event):
     srv, eng, source = server
     c = SioClient("127.0.0.1", srv.port).connect()
