@@ -17,13 +17,13 @@ cc_iters 24, 2 candidates per camera, 2 drones, batches of 128:
 3. ``kalman_bank`` against the plain chain at B=128, M=32, O=2 (dropouts,
    association ties, a gap re-seed) and at B=1;
 4. per-frame serving with detection on the card: the port's
-   ``Engine(host_detect=False).process_frame`` over 300 deterministic
+   ``Engine(host_detect=False).process_frame`` over 200 deterministic
    frames of two drones (sparse ingest) — both kernels launch once per
    frame, the drones are tracked near ground truth;
-4b. per-frame serving the default way, host detection: 300 frames at
+4b. per-frame serving the default way, host detection: 200 frames at
    readback pipelining depth 0 and at depth 2, bitwise equal, the bank
    kernel once per frame;
-4c. batched serving: the Engine at ``dispatch_batch`` 128 over 4 batches,
+4c. batched serving: the Engine at ``dispatch_batch`` 128 over 2 batches,
    inline and with the emit worker, against the per-frame host-detect
    events on the same frames;
 4d. the Socket.IO server over the CUDA engine on a localhost port: a
@@ -51,11 +51,23 @@ cc_iters 24, 2 candidates per camera, 2 drones, batches of 128:
    ``set-origin`` on the result, then the orbit tracked with those poses;
    [9c] ``refine-camera-pose`` over 60 served frames from perturbed poses;
    [9d] ``calibrate-intrinsics`` from rendered dot-grid frames; [9e]
-   ``run-trajectory`` over ``LoopbackLink``.
+   ``run-trajectory`` over ``LoopbackLink``;
+10. rigid bodies and the rest of the Engine's events on the card: [10a]
+   the body rig (16 blob slots, two templates with I = 3 body slots, the
+   bank at M = 64) served per frame and in batches of 128, batched
+   payloads bitwise equal to per-frame ones, the body stage against the
+   CPU, the bank at M = 64 against its plain chain, fits and tracks
+   against the truth, kernels a frame with and without bodies; [10b]
+   ``learn-body-template`` with ``apply`` while rows are in flight; [10c]
+   ``record-frames`` replayed through ``RecordedSource``; [10d]
+   ``capture-profile`` while the capture loop serves; [10e]
+   ``Engine(preprocess_frames=True)``: the blur + sharpen conv, then the
+   detection kernel.
 
 Every serving path serves with the matcher's observations (``with_obs``).
-Before each serving path ([4]-[5], [9c], [9e]) the kernels' launch counts
-are set to 0, and after it they are held to what the path must launch.
+Before each serving path ([4]-[5], [9c], [9e], [10]) the kernels' launch
+counts are set to 0, and after it they are held to what the path must
+launch.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -90,11 +102,11 @@ TRACK_MEAN_M, TRACK_MAX_M = 0.015, 0.025
 # phase [2] also checks detection at this many sweeps, more than one pass
 # of the kernel holds (69 with its 32-pixel tile)
 LONG_CC_ITERS = 150
-N_FRAMES = 300
+N_FRAMES = 200
 WARM_FRAMES = 20     # frames left out of the steady-state frames/s
 SETTLE_FRAMES = 60   # frames before the tracking error is held to bounds
 BATCH = 128
-BATCH_ROUNDS = 4     # batches the batched Engine serves in [4c]
+BATCH_ROUNDS = 2     # batches the batched Engine serves in [4c]
 SERVER_EVENTS = 100  # object-points events [4d] waits for
 DEVICE = "cuda"
 TIMING_RUNS = 20
@@ -113,6 +125,37 @@ TRAJ_SETPOINTS = 30
 # the card against the CPU on the same wand capture and index tables: the
 # tests' tolerance for the poses (relative rotations, unit translations)
 CALIB_ATOL = 1e-3
+# [10]: two rigid-body templates (metres, body frame), the JAX package's
+# tests/test_multi_template.py:19-22
+BODY_TMPL_A = ((0.0, 0.0, 0.0), (0.12, 0.0, 0.0), (0.0, 0.09, 0.0),
+               (0.05, 0.04, 0.07))
+BODY_TMPL_B = ((0.0, 0.0, 0.0), (0.2, 0.0, 0.0), (0.1, 0.16, 0.0),
+               (0.02, 0.05, 0.11))
+BODY_FRAMES = 60       # [10a] per-frame frames; then BODY_BATCHES batches
+BODY_BATCHES = 2
+BODY_CPU_FRAMES = 10   # [10a] frames whose body stage the CPU repeats
+LEARN_FRAMES = 90      # [10b] frames learned from, then tracked
+LEARNED_FRAMES = 30
+RECORD_FRAMES = 40     # [10c]
+PROFILE_MS = 1500      # [10d]
+PREPROCESS_FRAMES = 90  # [10e]: SETTLE_FRAMES, then 30 held to [4]'s bounds
+# fits and tracks against the truth.  Prop A spans 9-12 cm, about 10 px in
+# a camera 2.7 m away, so on most frames some of its blobs come close
+# enough to another in one camera to touch at the threshold, and the
+# merged centroid moves the marker's point by millimetres (10 mm and 10
+# degrees at worst on an H100 and on the CPU alike).  The mean over
+# the samples whose markers are all CLEAR_PX apart in every camera is held
+# to the JAX test's 5 mm (its atol) and 1 degree; every sample to 15 mm
+# and 15 degrees
+CLEAR_PX = 4.0
+FIT_MEAN_MM, FIT_MEAN_DEG = 5.0, 1.0
+FIT_MAX_MM, FIT_MAX_DEG = 15.0, 15.0
+# the body stage on the card against the CPU: the tests' tolerance for
+# rotation entries (positions agree closer)
+BODY_CPU_ATOL = 1e-4
+LEARN_ATOL_M = 2e-3       # learned pairwise distances against the template
+LEARNED_MARKER_M = 5e-3   # markers of the learned body, tracked, vs truth
+CONV_ATOL = 1e-5          # the preprocessing conv, card against CPU
 # H100 SXM peaks (NVIDIA's data sheet, at the full 700 W): device memory
 # 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, used for both
 # kernels' scalar work (float32 in the bank, int32 min/select in detection)
@@ -994,7 +1037,7 @@ def phase_times(rig, cfg, frames_np, batch, launches, errs):
             pipeline.pack_outputs(out).cpu()
 
     fps_b = B / wall_median(tail_batched)
-    fps_p = B / wall_median(tail_per_frame, runs=3)
+    fps_p = B / wall_median(tail_per_frame, runs=1)
     print(f"[6] batched tail (blobs on the device) {fps_b:.1f} frames/s at "
           f"B={B}; per-frame track_from_blobs {fps_p:.1f} frames/s")
     print_kernel_times("[6]", times)
@@ -1717,6 +1760,548 @@ def intrinsics_views(rig, n=INTRINSICS_VIEWS, seed=9):
     return K_t, frames
 
 
+def rot_up(a):
+    """A turn about the display world's up axis."""
+    c, s = np.cos(a), np.sin(a)
+    return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+
+
+def rot_x(a):
+    c, s = np.cos(a), np.sin(a)
+    return np.array([[1, 0, 0], [0, c, -s], [0, s, c]], np.float32)
+
+
+def pair_distances(m):
+    """A marker set's sorted pairwise distances."""
+    return np.sort(np.linalg.norm(m[:, None] - m[None], axis=-1), axis=None)
+
+
+def rot_angle_deg(Ra, Rb):
+    cos = (np.trace(np.asarray(Ra, np.float64).T @ Rb) - 1.0) / 2.0
+    return float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0))))
+
+
+class BodyScene:
+    """The body rig's scene: the script's two drones on their orbit and
+    props A and B, each circling 8 cm at 0.2 Hz while its yaw swings
+    0.4 rad either way, tilted so that no two of a prop's markers merge in
+    a camera.  Props are posed in the display world frame ([x, up, z], the
+    frame the fits come out in) and mapped back to the triangulation frame
+    to be rendered."""
+
+    PROPS = {"A": (BODY_TMPL_A, (-0.3, 0.25, 0.1), 0.4, 0.6, 0.0),
+             "B": (BODY_TMPL_B, (0.3, 0.25, -0.1), 2.15, 0.3, 1.0)}
+
+    def __init__(self, rig, Rs, ts, props=("A", "B"), drones=True):
+        from low_cost_mocap_tpu_torch.runtime.sources import SyntheticSource
+
+        self.rig, self.Rs, self.ts = rig, Rs, ts
+        self.props, self.drones = props, drones
+        self.src = SyntheticSource(rig, Rs, ts, num_drones=2,
+                                   headings=(0.0, np.pi))
+
+    def pose(self, name, t):
+        """(R, t) of a prop at time ``t`` (s), display world frame."""
+        _, centre, yaw, tilt, phase0 = self.PROPS[name]
+        ph = 2 * np.pi * 0.2 * t + phase0
+        return (rot_up(yaw + 0.4 * np.sin(ph)) @ rot_x(tilt),
+                np.asarray(centre, np.float32)
+                + np.float32(0.08) * np.array([np.cos(ph), 0.0, np.sin(ph)],
+                                              np.float32))
+
+    def markers(self, name, t):
+        R, p = self.pose(name, t)
+        return np.asarray(self.PROPS[name][0], np.float32) @ R.T + p
+
+    def _observed(self, t):
+        """Every marker's pixels (N, C, 2), visibility, and its owner (a
+        prop's name, or "drone")."""
+        from low_cost_mocap_tpu_torch.utils import synthetic as syn
+
+        parts, owner = [], []
+        for n in self.props:
+            Xw = self.markers(n, t)
+            parts.append(Xw[:, [0, 2, 1]] * np.array([-1.0, -1.0, 1.0],
+                                                      np.float32))
+            owner += [n] * len(Xw)
+        if self.drones:
+            parts += [syn.drone_markers(*self.src.drone_pose(d, t), self.rig)
+                      for d in range(2)]
+            owner += ["drone"] * 6
+        pts, mask = syn.observe(np.concatenate(parts), self.Rs, self.ts,
+                                self.rig)
+        return pts, mask, np.asarray(owner)
+
+    def read_at(self, t):
+        from low_cost_mocap_tpu_torch.utils import synthetic as syn
+
+        pts, mask, _ = self._observed(t)
+        return (syn.render_frames(pts, mask, self.rig.image_size, sigma=0.8)
+                * 255).astype(np.uint8)
+
+    def clear(self, name, t):
+        """Whether every marker of a prop is at least CLEAR_PX from every
+        other marker in every camera at time ``t`` (blobs at the threshold
+        are about 3 px wide; closer ones touch or merge, and the merged
+        centroid moves the marker's point by millimetres)."""
+        pts, _, owner = self._observed(t)
+        d = np.linalg.norm(pts[owner == name][:, None] - pts[None], axis=-1)
+        d[d == 0.0] = np.inf        # each marker against itself
+        return bool(d.min() >= CLEAR_PX)
+
+
+def body_errors(scene, payloads, start=0):
+    """Each prop's error in every payload from ``start`` on: for its
+    template, the fit nearest the truth (the A set has a spare slot, which
+    may fit a drone's LEDs) and the nearest track.  Returns ({"fit",
+    "track"}: (mm, deg, clear) arrays, ``clear`` from ``scene.clear``),
+    frames with both props fit, and the spare fits."""
+    errs = {"fit": ([], [], []), "track": ([], [], [])}
+    both, spare = 0, 0
+    for i, p in enumerate(payloads[start:], start=start):
+        t = i / 60
+        fitted = 0
+        for k, name in enumerate(scene.props):
+            R, pos = scene.pose(name, t)
+            clear = scene.clear(name, t)
+            for key, field, where in (("fit", "bodies", "t"),
+                                      ("track", "tracked_bodies", "pos")):
+                cands = [b for b in p[field] if b["templateIndex"] == k]
+                if not cands:
+                    continue
+                d = [np.linalg.norm(np.asarray(b[where]) - pos)
+                     for b in cands]
+                j = int(np.argmin(d))
+                errs[key][0].append(d[j] * 1e3)
+                errs[key][1].append(rot_angle_deg(cands[j]["R"], R))
+                errs[key][2].append(clear)
+                if key == "fit":
+                    fitted += 1
+                    spare += len(cands) - 1
+        both += fitted == len(scene.props)
+    return ({k: tuple(np.asarray(x) for x in v) for k, v in errs.items()},
+            both, spare)
+
+
+def body_rows(rig, cfg, Rs, ts, frames, device):
+    """Host-detected blobs of ``frames`` through ``track_from_blobs`` with
+    the rig's body sets on ``device``: the packed rows."""
+    import torch
+
+    from low_cost_mocap_tpu_torch.control import bindings
+    from low_cost_mocap_tpu_torch.models import pipeline
+    from low_cost_mocap_tpu_torch.ops import camera, correspond, detect
+
+    dev = torch.device(device)
+    K = torch.as_tensor(rig.K_stack(), device=dev)
+    Ps = camera.projection_matrix(K, torch.as_tensor(Rs, device=dev),
+                                  torch.as_tensor(ts, device=dev))
+    cal = (Ps, K, torch.as_tensor(rig.dist_stack(), device=dev),
+           torch.eye(4, device=dev), correspond._pairwise_fundamentals(Ps))
+    kw = dict(gate_px=cfg.epipolar_gate_px,
+              max_candidates=cfg.max_candidates_per_cam,
+              marker_dist1=rig.marker_dist_short,
+              marker_dist2=rig.marker_dist_long,
+              marker_tol=rig.marker_dist_tol,
+              marker_side_min=rig.marker_side_min, with_obs=True,
+              body_sets=rig.body_sets_resolved())
+    cutoff = detect.threshold_cutoff(cfg.detect_threshold)
+    st, rows = pipeline.make_init_state(rig, device=dev), []
+    for f in frames:
+        b = torch.from_numpy(bindings.ingest_detect_packed(
+            f, cutoff, cfg.max_blobs)).to(dev)
+        st, out = pipeline.track_from_blobs(st, b[..., :2], b[..., 2] > 0.5,
+                                            np.float32(1 / 60), *cal, **kw)
+        rows.append(pipeline.pack_outputs(out).cpu().numpy())
+    return np.stack(rows)
+
+
+def phase_bodies(rig, cfg, Rs, ts):
+    """[10a] The body rig (16 blob slots; TMPL_A with two instances and
+    TMPL_B with one: I = 3 body slots, M = 64 bank candidates) served
+    through ``Engine`` on the card: BODY_FRAMES frames per frame, then
+    BODY_BATCHES batches of BATCH, batched payloads bitwise equal to the
+    per-frame ones; the card's body stage against the CPU's; the bank
+    kernel at M = 64 against its plain chain; fits and tracks against the
+    truth; rates, idle share and kernels a frame with and without bodies.
+    Returns (launches {path: (detect, bank)}, bank max_abs_err, numbers)."""
+    import dataclasses
+
+    import torch
+
+    from low_cost_mocap_tpu_torch.control import bindings
+    from low_cost_mocap_tpu_torch.models import pipeline
+    from low_cost_mocap_tpu_torch.ops import (camera, correspond, detect,
+                                              kalman, kalman_cuda)
+
+    t_all = time.perf_counter()
+    brig = dataclasses.replace(rig, body_markers=BODY_TMPL_A, max_bodies=2,
+                               body_sets=((BODY_TMPL_B, 1),))
+    bcfg = dataclasses.replace(cfg, max_blobs=16)
+    scene = BodyScene(brig, Rs, ts)
+    n_b = BODY_BATCHES * BATCH
+    frames = [scene.read_at(i / 60) for i in range(n_b)]
+    launches = {}
+
+    per, pl = serving_engine(brig, bcfg, Rs, ts, None)
+    check(per._layout[4] == 3, f"[10a] body slots {per._layout}")
+    reset_launches()
+    with GcPauses():
+        stamps = [time.perf_counter()]
+        for f in frames[:BODY_FRAMES]:
+            per.process_frame(f, 1 / 60)
+            stamps.append(time.perf_counter())
+    launches["[10a] per-frame, bodies"] = read_launches(
+        "[10a] per-frame", 0, BODY_FRAMES)
+    fps = (BODY_FRAMES - WARM_FRAMES) / (stamps[-1] - stamps[WARM_FRAMES])
+
+    bat, bpl = serving_engine(brig, dataclasses.replace(
+        bcfg, dispatch_batch=BATCH), Rs, ts, None)
+    reset_launches()
+    with GcPauses():
+        t0 = time.perf_counter()
+        for f in frames:
+            bat.process_frame(f, 1 / 60)
+        bat.flush_batches()
+        fps_b = n_b / (time.perf_counter() - t0)
+    launches["[10a] batched, bodies"] = read_launches(
+        "[10a] batched", 0, BODY_BATCHES)
+    check(len(pl) == BODY_FRAMES and len(bpl) == n_b,
+          f"[10a] events {len(pl)}, {len(bpl)}")
+    check(bpl[:BODY_FRAMES] == pl, "[10a] batched payloads differ from "
+          "per-frame payloads")
+
+    # fits and tracks against the truth, after the trackers settle
+    errs, both, spare = body_errors(scene, bpl, start=WARM_FRAMES)
+    n_set = n_b - WARM_FRAMES
+    check(both >= 0.95 * n_set, f"[10a] both props fit in {both}/{n_set}")
+    summary = {}
+    for key in ("fit", "track"):
+        mm, deg, clear = errs[key]
+        check(clear.sum() >= 0.2 * len(clear), f"[10a] {key}: only "
+              f"{clear.sum()}/{len(clear)} samples with clear markers")
+        check(mm[clear].mean() < FIT_MEAN_MM
+              and deg[clear].mean() < FIT_MEAN_DEG,
+              f"[10a] {key} error with clear markers: mean "
+              f"{mm[clear].mean():.2f} mm {deg[clear].mean():.3f} deg")
+        check(mm.max() < FIT_MAX_MM and deg.max() < FIT_MAX_DEG,
+              f"[10a] {key} error max {mm.max():.2f} mm "
+              f"{deg.max():.3f} deg")
+        summary[key] = (f"{key}s, {int(clear.sum())} samples with clear "
+                        f"markers: mean {mm[clear].mean():.2f} mm "
+                        f"{deg[clear].mean():.3f} deg, max "
+                        f"{mm[clear].max():.2f} mm {deg[clear].max():.3f} "
+                        f"deg; all {len(mm)}: mean {mm.mean():.2f} mm "
+                        f"{deg.mean():.3f} deg, max {mm.max():.2f} mm "
+                        f"{deg.max():.3f} deg")
+
+    # the card's body stage against the port on the CPU, on the same blobs
+    layout = (4, bcfg.max_blobs, rig.num_objects, True, 3)
+    rows = {d: body_rows(brig, bcfg, Rs, ts, frames[:BODY_CPU_FRAMES], d)
+            for d in ("cpu", DEVICE)}
+    worst = 0.0
+    for g, w in zip(pipeline.unpack_outputs_batch(rows[DEVICE], *layout),
+                    pipeline.unpack_outputs_batch(rows["cpu"], *layout)):
+        check(np.array_equal(g.bodies.valid, w.bodies.valid)
+              and np.array_equal(g.tracked_bodies.valid,
+                                 w.tracked_bodies.valid),
+              "[10a] body validity differs between the card and the CPU")
+        for a, b in zip((*g.bodies, *g.tracked_bodies),
+                        (*w.bodies, *w.tracked_bodies)):
+            worst = max(worst, float(np.abs(np.asarray(a, np.float64)
+                                            - b).max()))
+    check(worst <= BODY_CPU_ATOL, f"[10a] body stage card vs CPU {worst}")
+
+    # the bank kernel at M = 64: the served batch's located candidates, and
+    # the random case of phase [3]
+    bank_err = 0.0
+    dev = torch.device(DEVICE)
+    Kd = torch.as_tensor(brig.K_stack(), device=dev)
+    cutoff = detect.threshold_cutoff(bcfg.detect_threshold)
+    blobs = torch.from_numpy(np.stack([bindings.ingest_detect_packed(
+        f, cutoff, bcfg.max_blobs) for f in frames[:BATCH]])).to(dev)
+    Ps = camera.projection_matrix(Kd, torch.as_tensor(Rs, device=dev),
+                                  torch.as_tensor(ts, device=dev))
+    geo = pipeline._locate_frame(
+        blobs[..., :2], blobs[..., 2] > 0.5, Ps, Kd,
+        torch.as_tensor(brig.dist_stack(), device=dev),
+        torch.eye(4, device=dev), correspond._pairwise_fundamentals(Ps),
+        gate_px=bcfg.epipolar_gate_px,
+        max_candidates=bcfg.max_candidates_per_cam,
+        marker_dist1=brig.marker_dist_short,
+        marker_dist2=brig.marker_dist_long, marker_tol=brig.marker_dist_tol,
+        marker_side_min=brig.marker_side_min)
+    loc = geo[3]
+    check(loc.valid.shape[-1] == 64, f"[10a] bank width {loc.valid.shape}")
+    dts = torch.full((BATCH,), 1 / 60, device=dev)
+    cases = [(loc.pos, loc.heading, loc.index, loc.valid, dts)]
+    cases += [[torch.from_numpy(a).to(dev) for a in bank_case(B, M=64)]
+              for B in (BATCH, 1)]
+    for case in cases:
+        st = kalman.init_state(rig.num_objects, device=dev)
+        st1, tr1 = kalman_cuda.kalman_scan(st, *case)
+        st2, tr2 = kalman.update_scan(st, *case)
+        torch.cuda.synchronize()
+        check(torch.equal(tr1.valid, tr2.valid)
+              and torch.equal(st1.initialized, st2.initialized),
+              "[10a] kalman_bank M=64: validity")
+        bank_err = max(bank_err, max(max_err(a, b) for a, b in zip(
+            (*tr1[:3], *st1), (*tr2[:3], *st2))))
+    check(bank_err <= BANK_ATOL, f"[10a] kalman_bank M=64 max_abs_err "
+          f"{bank_err}")
+    st0 = kalman.init_state(rig.num_objects, device=dev)
+    bank64_ms = cuda_ms(lambda: kalman_cuda.kalman_scan(st0, *cases[0]))
+    bank64_plain = cuda_ms(lambda: kalman.update_scan(st0, *cases[0]),
+                           runs=3)
+    bank64_bound, bank64_by = bank_bound(loc.valid, loc.index, BATCH, 64,
+                                         rig.num_objects)
+
+    # kernels a frame and idle share, with bodies and without
+    def serve(e, fs):
+        def run():
+            for f in fs:
+                e.process_frame(f, 1 / 60)
+        return run
+
+    plain, _ = serving_engine(rig, bcfg, Rs, ts, None)
+    with GcPauses():
+        t0 = time.perf_counter()
+        for f in frames[:BODY_FRAMES]:
+            plain.process_frame(f, 1 / 60)
+        fps_plain = BODY_FRAMES / (time.perf_counter() - t0)
+    n_prof = 2
+    t_prof = time.perf_counter()
+    prof = profile_frames(serve(per, frames[BODY_FRAMES:BODY_FRAMES
+                                            + n_prof]), n_prof)
+    prof_plain = profile_frames(serve(plain, frames[BODY_FRAMES:BODY_FRAMES
+                                                    + n_prof]), n_prof)
+    t_prof = time.perf_counter() - t_prof
+    idle = print_profile("[10a] profiled process_frame, body rig (host "
+                         "detection, per frame):", prof, 1e3 / fps, n_prof)
+    idle_plain = print_profile("[10a] profiled process_frame, the same rig "
+                               "without templates:", prof_plain,
+                               1e3 / fps_plain, n_prof)
+    print(f"[10a] body rig (16 slots, I=3 body slots, M=64): per frame "
+          f"{fps:.1f} frames/s after the first {WARM_FRAMES} (idle share "
+          f"{idle:.3f}, {prof[1]:.1f} kernels a frame), without templates "
+          f"{fps_plain:.1f} frames/s (idle {idle_plain:.3f}, "
+          f"{prof_plain[1]:.1f} kernels a frame); batched B={BATCH} "
+          f"{fps_b:.1f} frames/s over {BODY_BATCHES} batches, its first "
+          f"{BODY_FRAMES} payloads bitwise equal to per-frame serving")
+    print(f"[10a] against the truth over {n_set} frames: both props fit in "
+          f"{both}; {summary['fit']}; {summary['track']}; {spare} spare-"
+          f"slot fits of A on other markers; card vs CPU body stage over "
+          f"{BODY_CPU_FRAMES} frames: validity equal, max_abs_err "
+          f"{worst:.2e}; kalman_bank at M=64 (served candidates, B={BATCH} "
+          f"and B=1 random) max_abs_err {bank_err}, on the served "
+          f"candidates {bank64_ms:.4f} ms (plain {bank64_plain:.4f} ms, "
+          f"bound {bank64_bound:.3e} ms by {bank64_by})")
+    print(f"[10a] engine stages, per frame (mean ms): {stage_means(per)}")
+    print(f"[10a] took {time.perf_counter() - t_all:.1f} s (the two "
+          f"profiles {t_prof:.1f} s of it)")
+    return launches, bank_err, {"fps": fps, "fps_plain": fps_plain,
+                                "fps_batched": fps_b,
+                                "kernels": prof[1],
+                                "kernels_plain": prof_plain[1]}
+
+
+def phase_learn(rig, cfg, Rs, ts):
+    """[10b] learn-body-template on the card: LEARN_FRAMES frames of prop A
+    alone (per-frame serving, readback depth 2, so rows are in flight when
+    the template is applied), stop with ``apply``, then LEARNED_FRAMES
+    frames tracked with the learned template."""
+    import dataclasses
+
+    bcfg = dataclasses.replace(cfg, max_blobs=16, readback_pipeline_depth=2)
+    scene = BodyScene(rig, Rs, ts, props=("A",), drones=False)
+    eng, pl = serving_engine(rig, bcfg, Rs, ts, None)
+    got, errors = [], []
+    eng.on("body-template", got.append)
+    eng.on("engine-error", errors.append)
+    reset_launches()
+    eng.handle("learn-body-template", {"startOrStop": "start"})
+    for i in range(LEARN_FRAMES):
+        eng.process_frame(scene.read_at(i / 60), 1 / 60)
+    t0 = time.perf_counter()
+    eng.handle("learn-body-template", {"startOrStop": "stop", "apply": True,
+                                       "maxBodies": 1})
+    learn_ms = (time.perf_counter() - t0) * 1e3
+    n_before = len(pl)
+    n = LEARN_FRAMES + LEARNED_FRAMES
+    for i in range(LEARN_FRAMES, n):
+        eng.process_frame(scene.read_at(i / 60), 1 / 60)
+    eng.flush_batches()
+    launches = read_launches("[10b]", 0, n)
+    check(not errors, f"[10b] engine errors {errors[:3]}")
+    check(len(got) == 1 and got[0]["error"] is None and got[0]["applied"],
+          f"[10b] body-template events {got}")
+    learned = np.asarray(got[0]["markers"], np.float32)
+    d_err = float(np.abs(pair_distances(learned) - pair_distances(
+        np.asarray(BODY_TMPL_A, np.float32))).max())
+    check(learned.shape == (4, 3) and d_err < LEARN_ATOL_M,
+          f"[10b] learned distances off by {d_err} m")
+    after = pl[n_before:]
+    check(all("bodies" not in p for p in pl[:n_before])
+          and len(after) == LEARNED_FRAMES
+          and all("bodies" in p for p in after),
+          "[10b] the row layout did not switch cleanly")
+    worst = 0.0
+    for i, p in enumerate(after, start=n - LEARNED_FRAMES):
+        tb = p["tracked_bodies"]
+        check(len(tb) == 1, f"[10b] tracked bodies {tb}")
+        mk = learned @ np.asarray(tb[0]["R"]).T + np.asarray(tb[0]["pos"])
+        truth = scene.markers("A", i / 60)
+        worst = max(worst, float(np.linalg.norm(
+            mk[:, None] - truth[None], axis=-1).min(1).max()))
+    check(worst < LEARNED_MARKER_M, f"[10b] tracked markers off by {worst}")
+    print(f"[10b] learn-body-template over {LEARN_FRAMES} served frames of "
+          f"prop A (readback depth 2): {len(learned)} markers from "
+          f"{got[0]['frames_used']} frames, pairwise distances within "
+          f"{d_err * 1e3:.2f} mm of the template; learn and apply took "
+          f"{learn_ms:.1f} ms; the next {LEARNED_FRAMES} frames track it "
+          f"with every marker within {worst * 1e3:.2f} mm of the truth; "
+          f"kalman_bank {launches[1]} launches")
+    return launches
+
+
+def phase_record(rig, cfg, Rs, ts):
+    """[10c] record-frames on the card, replayed through ``RecordedSource``
+    into a fresh engine: blobs and object points equal the live run's."""
+    import tempfile
+
+    from low_cost_mocap_tpu_torch.runtime.sources import (RecordedSource,
+                                                          SyntheticSource)
+
+    src = SyntheticSource(rig, Rs, ts, num_drones=2, headings=(0.0, np.pi))
+    with tempfile.TemporaryDirectory() as tmp:
+        eng, live = serving_engine(rig, cfg, Rs, ts, src, artifacts_dir=tmp)
+        recs = []
+        eng.on("recording", recs.append)
+        reset_launches()
+        eng.handle("record-frames", {"startOrStop": "start",
+                                     "maxFrames": RECORD_FRAMES})
+        outs = [eng.process_frame(src.read_at(i / 60), 1 / 60)
+                for i in range(RECORD_FRAMES + 5)]
+        eng.handle("record-frames", {"startOrStop": "stop"})
+        check(len(recs) == 1 and recs[0]["error"] is None
+              and recs[0]["frames"] == RECORD_FRAMES,
+              f"[10c] recording events {recs}")
+        replay, got = serving_engine(rig, cfg, Rs, ts,
+                                     RecordedSource(recs[0]["path"]))
+        routs = [replay.process_frame(replay.source.read(), 1 / 60)
+                 for _ in range(RECORD_FRAMES)]
+        launches = read_launches("[10c]", 0, 2 * RECORD_FRAMES + 5)
+        size = os.path.getsize(recs[0]["path"])
+    for a, b in zip(routs, outs):
+        check(np.array_equal(a.blob_px, b.blob_px)
+              and np.array_equal(a.blob_valid, b.blob_valid),
+              "[10c] replayed blobs differ")
+    check(got == live[:RECORD_FRAMES], "[10c] replayed object points differ")
+    print(f"[10c] record-frames: {RECORD_FRAMES} frames recorded "
+          f"({size / 1e6:.2f} MB .npz), replayed through RecordedSource into "
+          f"a fresh engine: blobs and object-points payloads equal the live "
+          f"run's; kalman_bank {launches[1]} launches")
+    return launches
+
+
+def phase_profile(rig, cfg, Rs, ts):
+    """[10d] capture-profile while the capture loop serves on the card: the
+    ``profile`` event arrives and its trace lists the bank kernel's
+    launches, made on the capture thread."""
+    import tempfile
+    import threading
+
+    from low_cost_mocap_tpu_torch.runtime.sources import SyntheticSource
+
+    src = SyntheticSource(rig, Rs, ts, num_drones=2, headings=(0.0, np.pi))
+    with tempfile.TemporaryDirectory() as tmp:
+        eng, pl = serving_engine(rig, cfg, Rs, ts, src)
+        got, done = [], threading.Event()
+        eng.on("profile", lambda d: (got.append(d), done.set()))
+        reset_launches()
+        eng.start()
+        try:
+            time.sleep(1.0)
+            n0 = len(pl)
+            eng.handle("capture-profile", {"durationMs": PROFILE_MS,
+                                           "path": tmp})
+            check(done.wait(60), "[10d] no profile event")
+            served = len(pl) - n0
+        finally:
+            eng.stop()
+        launches = read_launches("[10d]", 0, None)
+        check(got[0].get("error") is None, f"[10d] profile: {got[0]}")
+        with open(got[0]["path"]) as f:
+            trace = json.load(f)
+        size = os.path.getsize(got[0]["path"])
+    events = trace.get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    bank = sum("kalman_bank" in str(e.get("name", "")) for e in kernels)
+    span = ((max(e["ts"] + e.get("dur", 0) for e in kernels)
+             - min(e["ts"] for e in kernels)) / 1e3 if kernels else 0.0)
+    cats = {}
+    for e in events:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    seen = (f"a {size / 1e6:.2f} MB Chrome trace of {len(kernels)} kernels "
+            f"over {span:.1f} ms, {bank} of them kalman_bank; events by "
+            f"category {cats}; {served} frames served between the request "
+            f"and the event")
+    check(bank >= 1, f"[10d] the trace lists no kalman_bank launch: {seen}")
+    print(f"[10d] capture-profile ({PROFILE_MS} ms) while the capture loop "
+          f"served (the bank kernel launched by the capture thread): {seen}; "
+          f"kalman_bank {launches[1]} launches in the phase")
+    return launches
+
+
+def phase_preprocess(rig, cfg, Rs, ts):
+    """[10e] Engine(preprocess_frames=True) on the card: dense frames
+    blurred and sharpened (one conv), then the detect_blobs kernel; the
+    conv against the CPU port, detection on preprocessed frames against its
+    plain version, and the drones tracked within [4]'s bounds."""
+    import torch
+
+    from low_cost_mocap_tpu_torch.ops import detect, detect_cuda
+    from low_cost_mocap_tpu_torch.runtime.sources import SyntheticSource
+
+    src = SyntheticSource(rig, Rs, ts, num_drones=2, headings=(0.0, np.pi))
+    eng, pl = serving_engine(rig, cfg, Rs, ts, src, preprocess_frames=True)
+    check(not eng._fast and not eng._host_detect,
+          "[10e] preprocess_frames does not ingest dense frames")
+    reset_launches()
+    t0 = time.perf_counter()
+    for i in range(PREPROCESS_FRAMES):
+        eng.process_frame(src.read_at(i / 60), 1 / 60)
+    fps = PREPROCESS_FRAMES / (time.perf_counter() - t0)
+    launches = read_launches("[10e]", PREPROCESS_FRAMES, PREPROCESS_FRAMES)
+    errs, seen = payload_track_errors(src, pl)
+    n_late = PREPROCESS_FRAMES - SETTLE_FRAMES
+    check(seen >= 0.95 * n_late, f"[10e] both drones tracked in {seen}/"
+          f"{n_late} settled frames")
+    check(errs.mean() < TRACK_MEAN_M and errs.max() < TRACK_MAX_M,
+          f"[10e] tracking error mean {errs.mean():.4f} max "
+          f"{errs.max():.4f} m")
+    f = torch.from_numpy(src.read_at(0.5)).to(torch.float32) / 255.0
+    pre = detect.preprocess(f.to(DEVICE))
+    conv_err = max_err(pre.cpu(), detect.preprocess(f))
+    check(conv_err <= CONV_ATOL, f"[10e] conv card vs CPU {conv_err}")
+    conv_ms = cuda_ms(lambda: detect.preprocess(pre))
+    args = (cfg.detect_threshold, cfg.max_blobs, cfg.cc_iters)
+    c1, v1, s1 = detect_cuda.find_blobs(pre, *args)
+    c2, v2, s2 = detect.find_blobs_multi(pre, *args)
+    det_err = max(max_err(c1, c2), max_err(s1, s2))
+    check(torch.equal(v1, v2) and det_err <= DETECT_ATOL,
+          f"[10e] detect_blobs on preprocessed frames: {det_err}")
+    print(f"[10e] Engine(preprocess_frames=True) served {PREPROCESS_FRAMES} "
+          f"dense frames at {fps:.1f} frames/s: drones tracked in "
+          f"{seen}/{n_late} settled frames, error mean "
+          f"{errs.mean() * 1e3:.2f} mm max {errs.max() * 1e3:.2f} mm; the "
+          f"13x13 conv {conv_ms:.4f} ms on 4x320x320, {conv_err:.1e} from "
+          f"the CPU; detect_blobs on the preprocessed frames == plain "
+          f"(valid per camera {v1.sum(1).tolist()}); one launch of each "
+          f"kernel a frame")
+    return launches, det_err
+
+
 def main() -> None:
     import torch
 
@@ -1766,6 +2351,21 @@ def main() -> None:
     # [9] resets and reads the counts around each of its serving paths
     bank9, calib_times = phase_calibration(rig, cfg, Rs, ts)
     paths["[9c] + [9e] refinement and trajectory serving"] = (0, bank9)
+    # [10] the body rig and the rest of the Engine's events, likewise.
+    # [10d] first: its trace is the process's first profiler session, as a
+    # server's first capture-profile is (a CUDA session after others in the
+    # same process can lose its kernel records, PERF.md)
+    t10 = time.perf_counter()
+    paths["[10d] capture-profile"] = phase_profile(rig, cfg, Rs, ts)
+    body_paths, bank64_err, _ = phase_bodies(rig, cfg, Rs, ts)
+    paths.update(body_paths)
+    paths["[10b] learn-body-template"] = phase_learn(rig, cfg, Rs, ts)
+    paths["[10c] record-frames and replay"] = phase_record(rig, cfg, Rs, ts)
+    paths["[10e] preprocess_frames"], pre_det_err = phase_preprocess(
+        rig, cfg, Rs, ts)
+    print(f"[10] took {time.perf_counter() - t10:.1f} s")
+    det_err = max(det_err, pre_det_err)
+    bank_err = max(bank_err, bank64_err)
     launches = tuple(int(sum(v[i] for v in paths.values())) for i in (0, 1))
     for name, (d, k) in paths.items():
         print(f"    {name}: detect_blobs {d}, kalman_bank {k} launches")

@@ -4,16 +4,14 @@ The port's own copy of ``CameraIntrinsics``, ``RigConfig`` and
 ``EngineConfig``, with the fields and defaults of the JAX package's
 ``config.py``, so that one configuration means the same thing to both.
 Fixed-shape budgets (``max_blobs``, ``max_candidates_per_cam``) keep every
-tensor of the tracking step at a static shape.
-
-Generalised rigid bodies (``body_markers``, ``body_sets``) are carried as
-fields but not yet tracked by the port: ``body_sets_resolved`` raises when
-they are set.
+tensor of the tracking step at a static shape.  ``save_config`` /
+``load_config`` write and read both as one JSON file.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any
 
 import numpy as np
@@ -91,16 +89,31 @@ class RigConfig:
         """(H, W) frame shape — square configs return (s, s)."""
         return image_hw(self.image_size)
 
-    def body_sets_resolved(self) -> tuple:
-        """Configured body templates; ``()`` when none is configured.
+    def body_template(self):
+        """``rigid_general.BodyTemplate`` for ``body_markers``, or None."""
+        if not self.body_markers:
+            return None
+        from low_cost_mocap_tpu_torch.ops.rigid_general import make_template
 
-        Rigid-body tracking is not ported yet, so a rig with bodies raises
-        rather than silently tracking drones only."""
-        if self.body_markers or self.body_sets:
-            raise NotImplementedError(
-                "rigid-body templates are not supported by the PyTorch port "
-                "yet")
-        return ()
+        return make_template(np.asarray(self.body_markers, np.float32))
+
+    def body_sets_resolved(self) -> tuple:
+        """All configured body templates as ((BodyTemplate, max_inst), ...):
+        ``body_markers``/``max_bodies`` (when set) first, then every
+        ``body_sets`` entry; ``()`` when none is configured."""
+        from low_cost_mocap_tpu_torch.ops.rigid_general import make_template
+
+        sets = []
+        if self.body_markers:
+            sets.append((self.body_template(), int(self.max_bodies)))
+        for markers, max_inst in self.body_sets:
+            sets.append((make_template(np.asarray(markers, np.float32)),
+                         int(max_inst)))
+        return tuple(sets)
+
+    def total_body_slots(self) -> int:
+        """Sum of max_instances across all configured body sets."""
+        return sum(mi for _, mi in self.body_sets_resolved())
 
     def K_stack(self) -> np.ndarray:
         """(C, 3, 3) stacked intrinsic matrices."""
@@ -158,3 +171,37 @@ class EngineConfig:
 
     # numerics
     dtype: str = "float32"
+
+
+def save_config(path: str, rig: RigConfig, engine: EngineConfig) -> None:
+    blob: dict[str, Any] = {
+        "version": 1,
+        "rig": dataclasses.asdict(rig),
+        "engine": dataclasses.asdict(engine),
+    }
+    with open(path, "w") as f:
+        json.dump(blob, f, indent=2)
+
+
+def load_config(path: str) -> tuple[RigConfig, EngineConfig]:
+    with open(path) as f:
+        blob = json.load(f)
+    rig_d = blob["rig"]
+    cams = tuple(
+        CameraIntrinsics(
+            intrinsic_matrix=tuple(tuple(r) for r in c["intrinsic_matrix"]),
+            distortion_coef=tuple(c["distortion_coef"]),
+            rotation=c.get("rotation", 0),
+        )
+        for c in rig_d.pop("cameras")
+    )
+    if "body_markers" in rig_d:
+        rig_d["body_markers"] = tuple(
+            tuple(m) for m in rig_d["body_markers"])
+    if "body_sets" in rig_d:
+        rig_d["body_sets"] = tuple(
+            (tuple(tuple(m) for m in markers), int(max_inst))
+            for markers, max_inst in rig_d["body_sets"])
+    rig = RigConfig(cameras=cams, **rig_d)
+    engine = EngineConfig(**blob["engine"])
+    return rig, engine

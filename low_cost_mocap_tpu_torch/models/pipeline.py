@@ -1,9 +1,10 @@
-"""The live tracking step: frames -> blobs -> tracked drone poses.
+"""The live tracking step: frames -> blobs -> tracked drone and body poses.
 
 Counterpart of ``low_cost_mocap_tpu/models/pipeline.py``:
 
-    frames -> blobs -> undistort -> epipolar match -> DLT triangulate ->
-    world transform -> rigid-body fit -> Kalman bank -> one packed row
+    frames -> [blur + sharpen] -> blobs -> undistort -> epipolar match ->
+    DLT triangulate -> world transform -> rigid-body fit -> Kalman bank ->
+    [6-DoF body fits + body tracker] -> one packed row
 
 Detection runs the ``detect_blobs`` kernel and the bank the
 ``kalman_bank`` kernel for CUDA tensors (their plain PyTorch versions for
@@ -14,11 +15,18 @@ kernel.
 
 Frames come in dense (uint8 or float), as 1-bit packed rows, or as the
 lit pixels' indices (sparse ingest, ``ops.detect.sparse_ingest``).
+``do_preprocess`` blurs and sharpens dense frames before detection.
 ``with_obs`` adds the matcher's per-camera observations of every point to
 the outputs (and to the packed row), which live recalibration collects.
 
-Not ported yet (they raise ``NotImplementedError``): preprocessing
-(blur + sharpen) and rigid-body templates.
+``body_sets`` (((BodyTemplate, max_instances), ...)) tracks rigid-body
+templates after the bank: each set is fit over the points the previous
+sets left (``ops/rigid_general.locate_bodies``), seeded by its tracks'
+constant-velocity predictions, then tracked (``ops/body_tracker.update``).
+The state is then (KalmanState, (BodyTrackState, ...)), as
+``make_init_state`` builds it.  Because the body stage is seeded by the
+tracker, batched serving runs it frame by frame after the batched geometry
+and the bank, the same calls per-frame serving makes.
 """
 
 from __future__ import annotations
@@ -28,9 +36,11 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from low_cost_mocap_tpu_torch.ops import body_tracker
 from low_cost_mocap_tpu_torch.ops import camera as cam_ops
 from low_cost_mocap_tpu_torch.ops import (correspond, detect, detect_cuda,
-                                          kalman, kalman_cuda, rigid, world)
+                                          kalman, kalman_cuda, rigid,
+                                          rigid_general, world)
 
 
 class FrameOutputs(NamedTuple):
@@ -46,6 +56,9 @@ class FrameOutputs(NamedTuple):
     tracked: kalman.TrackedObjects     # Kalman/low-pass output
     point_obs: Any = None        # (C*K, C, 2) winners' per-camera pixels
     point_obs_mask: Any = None   # (C*K, C); both with ``with_obs`` only
+    bodies: Any = None           # rigid_general.LocatedBodies (I, ...)
+    tracked_bodies: Any = None   # body_tracker.TrackedBodies (I, ...); both
+    #                              with body templates only
 
 
 def pack_outputs(out: FrameOutputs) -> torch.Tensor:
@@ -57,38 +70,54 @@ def pack_outputs(out: FrameOutputs) -> torch.Tensor:
               out.point_errors, out.point_valid, *out.objects, *out.tracked]
     if out.point_obs is not None:
         leaves += [out.point_obs, out.point_obs_mask]
+    if out.bodies is not None:
+        leaves += [*out.bodies, *out.tracked_bodies]
     return torch.cat([t.to(torch.float32).reshape(*lead, -1)
                       for t in leaves], dim=-1)
 
 
-def _sizes(C: int, K: int, O: int, with_obs: bool) -> list:
+def _sizes(C: int, K: int, O: int, with_obs: bool, I: int) -> list:
     N = C * K
     return [C * K * 2, C * K, N * 3, N, N, N * 3, N, N, N, N,
-            O * 3, O * 3, O, O] + ([N * C * 2, N * C] if with_obs else [])
+            O * 3, O * 3, O, O] + ([N * C * 2, N * C] if with_obs else []) \
+        + ([I * 9, I * 3, I, I, I * 3, I * 3, I * 4, I] if I else [])
 
 
 def row_length(num_cameras: int, max_blobs: int, num_objects: int,
-               with_obs: bool = False) -> int:
+               with_obs: bool = False, num_bodies: int = 0) -> int:
     """Length L of one frame's packed row (``pack_outputs``)."""
-    return sum(_sizes(num_cameras, max_blobs, num_objects, with_obs))
+    return sum(_sizes(num_cameras, max_blobs, num_objects, with_obs,
+                      num_bodies))
 
 
 def unpack_outputs_batch(rows: np.ndarray, num_cameras: int, max_blobs: int,
-                         num_objects: int, with_obs: bool = False) -> list:
+                         num_objects: int, with_obs: bool = False,
+                         num_bodies: int = 0) -> list:
     """Decode a (B, L) batch of packed rows into per-frame FrameOutputs of
     numpy arrays (views into the batch).  ``with_obs`` mirrors the step's
-    flag."""
-    C, K, O = num_cameras, max_blobs, num_objects
+    flag; ``num_bodies`` is the total body slots (0 without templates)."""
+    C, K, O, I = num_cameras, max_blobs, num_objects, num_bodies
     N = C * K
     rows = np.asarray(rows)
     B = rows.shape[0]
-    splits = np.split(rows, np.cumsum(_sizes(C, K, O, with_obs))[:-1],
+    splits = np.split(rows, np.cumsum(_sizes(C, K, O, with_obs, I))[:-1],
                       axis=1)
     (blob_px, blob_valid, obj_pts, errs, pvalid, lpos, lhead, lerr, lidx,
      lvalid, tpos, tvel, thead, tvalid) = splits[:14]
+    n = 14
     if with_obs:
         pobs = splits[14].reshape(B, N, C, 2)
         pobs_m = splits[15].reshape(B, N, C) > 0.5
+        n = 16
+    if I:
+        bR, bt, brms, bvalid, tbpos, tbvel, tbquat, tbvalid = splits[n:]
+        bR = bR.reshape(B, I, 3, 3)
+        bt = bt.reshape(B, I, 3)
+        bvalid = bvalid > 0.5
+        tbpos = tbpos.reshape(B, I, 3)
+        tbvel = tbvel.reshape(B, I, 3)
+        tbquat = tbquat.reshape(B, I, 4)
+        tbvalid = tbvalid > 0.5
     blob_px = blob_px.reshape(B, C, K, 2)
     blob_valid = blob_valid.reshape(B, C, K) > 0.5
     obj_pts = obj_pts.reshape(B, N, 3)
@@ -110,20 +139,65 @@ def unpack_outputs_batch(rows: np.ndarray, num_cameras: int, max_blobs: int,
                                       heading=thead[i], valid=tvalid[i]),
         point_obs=pobs[i] if with_obs else None,
         point_obs_mask=pobs_m[i] if with_obs else None,
+        bodies=rigid_general.LocatedBodies(
+            R=bR[i], t=bt[i], rms=brms[i], valid=bvalid[i]) if I else None,
+        tracked_bodies=body_tracker.TrackedBodies(
+            pos=tbpos[i], vel=tbvel[i], quat=tbquat[i],
+            valid=tbvalid[i]) if I else None,
     ) for i in range(B)]
 
 
 def unpack_outputs(arr: np.ndarray, num_cameras: int, max_blobs: int,
-                   num_objects: int, with_obs: bool = False) -> FrameOutputs:
+                   num_objects: int, with_obs: bool = False,
+                   num_bodies: int = 0) -> FrameOutputs:
     """Inverse of ``pack_outputs`` on one host row."""
     return unpack_outputs_batch(np.asarray(arr)[None], num_cameras,
-                                max_blobs, num_objects, with_obs)[0]
+                                max_blobs, num_objects, with_obs,
+                                num_bodies)[0]
 
 
-def _not_ported(body_template=None, body_sets=None) -> None:
-    if body_template is not None or body_sets:
-        raise NotImplementedError(
-            "rigid-body templates are not ported to PyTorch yet")
+def make_init_state(rig, device=None):
+    """Initial tracker state for this rig on ``device`` (CUDA by default):
+    a KalmanState, or with body templates (KalmanState, (BodyTrackState
+    per set, ...))."""
+    ks = kalman.init_state(rig.num_objects, device=device)
+    sets = rig.body_sets_resolved()
+    if sets:
+        return (ks, tuple(body_tracker.init_state(mi, device=device)
+                          for _, mi in sets))
+    return ks
+
+
+def _resolve_sets(body_template, max_bodies, body_sets):
+    """``body_template``/``max_bodies`` is single-set shorthand."""
+    if body_sets is None and body_template is not None:
+        return ((body_template, max_bodies),)
+    return body_sets or ()
+
+
+def _body_stage(body_states, pts, live, dt, body_sets):
+    """One frame's bodies: each set fit over the points the previous sets
+    left, seeded by its tracks' constant-velocity predictions, then
+    tracked.  pts: (N, 3); live: (N,); dt: () tensor.  Returns (new body
+    states, in the structure given — a bare BodyTrackState stays bare —,
+    LocatedBodies and TrackedBodies over all slots in set order)."""
+    legacy = isinstance(body_states, body_tracker.BodyTrackState)
+    states = (body_states,) if legacy else body_states
+    fits, tracks, new = [], [], []
+    for si, (tmpl, max_inst) in enumerate(body_sets):
+        bs = states[si]
+        b, live = rigid_general.locate_bodies(
+            pts, live, tmpl, max_instances=max_inst, return_live=True,
+            seed_R=body_tracker.quat_to_rot(bs.quat),
+            seed_t=bs.pos + bs.vel * dt, seed_ok=bs.active)
+        nbs, tb = body_tracker.update(bs, b.t, b.R, b.rms, b.valid, dt)
+        fits.append(b)
+        tracks.append(tb)
+        new.append(nbs)
+    bodies = rigid_general.LocatedBodies(*(torch.cat(x) for x in zip(*fits)))
+    tracked = body_tracker.TrackedBodies(*(torch.cat(x)
+                                           for x in zip(*tracks)))
+    return (new[0] if legacy else tuple(new)), bodies, tracked
 
 
 def _locate_frame(blobs, blob_valid, Ps, K, dist, to_world_matrix, Fs, *,
@@ -165,12 +239,14 @@ def _bank(state, located, dts, report, kalman_impl):
     return kalman_cuda.kalman_scan(*args, report=report)
 
 
-def _batch_outputs(blobs_u, blob_valid, match, pts, located, tracked):
+def _batch_outputs(blobs_u, blob_valid, match, pts, located, tracked,
+                   bodies=None, tracked_bodies=None):
     return FrameOutputs(
         blob_px=blobs_u, blob_valid=blob_valid, object_points=pts,
         point_errors=match["errors"], point_valid=match["valid"],
         objects=located, tracked=tracked, point_obs=match.get("obs"),
-        point_obs_mask=match.get("obs_mask"))
+        point_obs_mask=match.get("obs_mask"), bodies=bodies,
+        tracked_bodies=tracked_bodies)
 
 
 def scan_track_from_blobs(state, blobs_b, blob_valid_b, dts, Ps, K, dist,
@@ -178,16 +254,19 @@ def scan_track_from_blobs(state, blobs_b, blob_valid_b, dts, Ps, K, dist,
                           max_candidates: int, marker_dist1: float,
                           marker_dist2: float, marker_tol: float,
                           marker_side_min: float, body_template=None,
-                          body_sets=None, with_obs: bool = False,
-                          kalman_report: str = "pre",
+                          max_bodies: int = 2, body_sets=None,
+                          with_obs: bool = False, kalman_report: str = "pre",
                           kalman_impl: str = "auto"):
     """Batched serving: B consecutive frames' geometry as batched ops, then
-    the bank over the batch in one kernel launch.
+    the bank over the batch in one kernel launch, then (with body
+    templates) the body stage frame by frame, as per-frame serving runs it.
 
     blobs_b: (B, C, K, 2); blob_valid_b: (B, C, K); dts: (B,).
     Returns (state after B frames, packed (B, L) rows).
     """
-    _not_ported(body_template, body_sets)
+    body_sets = _resolve_sets(body_template, max_bodies, body_sets)
+    if body_sets:
+        state, body_states = state
     geo = _locate_frame(
         blobs_b, blob_valid_b, Ps, K, dist, to_world_matrix, Fs,
         gate_px=gate_px, max_candidates=max_candidates,
@@ -196,8 +275,21 @@ def scan_track_from_blobs(state, blobs_b, blob_valid_b, dts, Ps, K, dist,
         with_obs=with_obs)
     dts = torch.as_tensor(dts, dtype=torch.float32, device=blobs_b.device)
     state, tracked = _bank(state, geo[3], dts, kalman_report, kalman_impl)
-    return state, pack_outputs(_batch_outputs(geo[0], blob_valid_b, *geo[1:],
-                                              tracked))
+    bodies = tracked_bodies = None
+    if body_sets:
+        pts, valid = geo[2], geo[1]["valid"]
+        per = []
+        for i in range(dts.shape[0]):
+            body_states, b, tb = _body_stage(body_states, pts[i], valid[i],
+                                             dts[i], body_sets)
+            per.append((b, tb))
+        bodies = rigid_general.LocatedBodies(
+            *(torch.stack(x) for x in zip(*(b for b, _ in per))))
+        tracked_bodies = body_tracker.TrackedBodies(
+            *(torch.stack(x) for x in zip(*(tb for _, tb in per))))
+        state = (state, body_states)
+    return state, pack_outputs(_batch_outputs(
+        geo[0], blob_valid_b, *geo[1:], tracked, bodies, tracked_bodies))
 
 
 def track_from_blobs(state, blobs, blob_valid, dt, Ps, K, dist,
@@ -205,12 +297,14 @@ def track_from_blobs(state, blobs, blob_valid, dt, Ps, K, dist,
                      max_candidates: int, marker_dist1: float,
                      marker_dist2: float, marker_tol: float,
                      marker_side_min: float, body_template=None,
-                     body_sets=None, with_obs: bool = False,
-                     kalman_report: str = "pre",
+                     max_bodies: int = 2, body_sets=None,
+                     with_obs: bool = False, kalman_report: str = "pre",
                      kalman_impl: str = "auto"):
     """Post-detection tail of one frame: (C, K, 2) blobs -> (new_state,
     FrameOutputs).  The batched code at B = 1."""
-    _not_ported(body_template, body_sets)
+    body_sets = _resolve_sets(body_template, max_bodies, body_sets)
+    if body_sets:
+        state, body_states = state
     if Fs is None:
         Fs = correspond._pairwise_fundamentals(Ps)
     geo = _locate_frame(
@@ -223,13 +317,19 @@ def track_from_blobs(state, blobs, blob_valid, dt, Ps, K, dist,
                           device=blobs.device).reshape(1)
     state, tracked = _bank(state, geo[3], dts, kalman_report, kalman_impl)
     out = _batch_outputs(geo[0], blob_valid[None], *geo[1:], tracked)
+    bodies = tracked_bodies = None
+    if body_sets:
+        body_states, bodies, tracked_bodies = _body_stage(
+            body_states, geo[2][0], geo[1]["valid"][0], dts[0], body_sets)
+        state = (state, body_states)
     return state, FrameOutputs(
         out.blob_px[0], out.blob_valid[0], out.object_points[0],
         out.point_errors[0], out.point_valid[0],
         rigid.LocatedObjects(*(t[0] for t in out.objects)),
         kalman.TrackedObjects(*(t[0] for t in out.tracked)),
         *(None if t is None else t[0]
-          for t in (out.point_obs, out.point_obs_mask)))
+          for t in (out.point_obs, out.point_obs_mask)),
+        bodies=bodies, tracked_bodies=tracked_bodies)
 
 
 def frame_step(state, frames, dt, Ps, K, dist, to_world_matrix, Fs=None, *,
@@ -239,7 +339,7 @@ def frame_step(state, frames, dt, Ps, K, dist, to_world_matrix, Fs=None, *,
                marker_side_min: float, do_preprocess: bool,
                packed_input: bool = False, sparse_input: bool = False,
                image_shape: tuple[int, int, int] | None = None,
-               body_template=None, body_sets=None,
+               body_template=None, max_bodies: int = 2, body_sets=None,
                with_obs: bool = False, kalman_report: str = "pre",
                kalman_impl: str = "auto"):
     """One frame: detection, then ``track_from_blobs``.
@@ -248,11 +348,13 @@ def frame_step(state, frames, dt, Ps, K, dist, to_world_matrix, Fs=None, *,
     (``ops.detect.pack_frames``); ``sparse_input=True`` takes (budget,)
     int32 lit-pixel indices (``ops.detect.sparse_ingest``) and needs
     ``image_shape`` = (C, H, W); otherwise (C, H, W) uint8 or float frames
-    thresholded on the device.  Returns (new_state, FrameOutputs).
+    thresholded on the device, blurred and sharpened first with
+    ``do_preprocess`` (which needs such frames: binary ones raise).
+    Returns (new_state, FrameOutputs).
     """
-    if do_preprocess:
-        raise NotImplementedError(
-            "frame preprocessing (blur + sharpen) is not ported yet")
+    if do_preprocess and (sparse_input or packed_input):
+        raise ValueError("do_preprocess blurs dense frames; sparse and "
+                         "packed inputs are already thresholded")
     if sparse_input:
         if image_shape is None:
             raise ValueError("sparse_input needs image_shape = (C, H, W)")
@@ -264,6 +366,8 @@ def frame_step(state, frames, dt, Ps, K, dist, to_world_matrix, Fs=None, *,
     else:
         if not frames.is_floating_point():
             frames = frames.to(torch.float32) * (1.0 / 255.0)
+        if do_preprocess:
+            frames = detect.preprocess(frames)
         eff_threshold = threshold
     blobs, blob_valid, _ = detect_cuda.find_blobs(
         frames, eff_threshold, max_blobs, cc_iters=cc_iters)
@@ -272,6 +376,6 @@ def frame_step(state, frames, dt, Ps, K, dist, to_world_matrix, Fs=None, *,
         gate_px=gate_px, max_candidates=max_candidates,
         marker_dist1=marker_dist1, marker_dist2=marker_dist2,
         marker_tol=marker_tol, marker_side_min=marker_side_min,
-        body_template=body_template, body_sets=body_sets,
-        with_obs=with_obs, kalman_report=kalman_report,
-        kalman_impl=kalman_impl)
+        body_template=body_template, max_bodies=max_bodies,
+        body_sets=body_sets, with_obs=with_obs,
+        kalman_report=kalman_report, kalman_impl=kalman_impl)

@@ -1,8 +1,15 @@
 """Blob detection front-end: threshold -> connected components -> centroids.
 
-Counterpart of ``low_cost_mocap_tpu/ops/detect.py``: host-side
-threshold + 1-bit packing and lit-pixel extraction (sparse ingest),
-device-side unpacking and scattering, and the plain PyTorch detector.
+Counterpart of ``low_cost_mocap_tpu/ops/detect.py``: the blur + sharpen
+preprocessing, host-side threshold + 1-bit packing and lit-pixel
+extraction (sparse ingest), device-side unpacking and scattering, and the
+plain PyTorch detector.
+
+Preprocessing composes the reference's 9x9 Gaussian blur and 5x5 sharpen
+kernel into one 13x13 kernel (convolution is associative) and applies it
+to all cameras in one ``conv2d``, a cross-correlation as JAX's
+``lax.conv`` is, with the same zero padding; the kernel is built once per
+device.
 The detector labels each lit pixel with its raster index, runs
 ``cc_iters`` masked 3x3 min-label sweeps (out-of-frame pixels count as
 ``big`` = H*W), takes the first K distinct labels in ascending (raster)
@@ -17,6 +24,58 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def _gaussian_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
+    if sigma <= 0:
+        # OpenCV's default sigma for GaussianBlur(ksize, sigmaX=0)
+        sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
+    x = np.arange(ksize, dtype=np.float64) - (ksize - 1) / 2.0
+    k = np.exp(-(x**2) / (2.0 * sigma**2))
+    return (k / k.sum()).astype(np.float32)
+
+
+# The reference's hand-tuned sharpen kernel (computer_code/api/helpers.py:76-80)
+SHARPEN_KERNEL = np.array(
+    [
+        [-2, -1, -1, -1, -2],
+        [-1, 1, 3, 1, -1],
+        [-1, 3, 4, 3, -1],
+        [-1, 1, 3, 1, -1],
+        [-2, -1, -1, -1, -2],
+    ],
+    dtype=np.float32,
+)
+
+
+@functools.lru_cache(maxsize=8)
+def fused_preprocess_kernel(blur_ksize: int = 9,
+                            sigma: float = 0.0) -> np.ndarray:
+    """Gaussian blur and sharpen composed into one (blur_ksize + 4)^2
+    kernel: sharpen * (gauss * img) == (sharpen * gauss) * img."""
+    from scipy.signal import convolve2d
+
+    g1 = _gaussian_kernel_1d(blur_ksize, sigma)
+    g2 = np.outer(g1, g1)
+    return convolve2d(SHARPEN_KERNEL, g2, mode="full").astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _preprocess_weight(blur_ksize: int, sigma: float, device: torch.device):
+    k = torch.from_numpy(fused_preprocess_kernel(blur_ksize, sigma))
+    return k[None, None].to(device)                 # (1, 1, kh, kw)
+
+
+def preprocess(frames, blur_ksize: int = 9, sigma: float = 0.0):
+    """Blur + sharpen all camera frames in one conv.
+
+    frames: (C, H, W) float32 in [0, 1].  Returns the same shape, clipped
+    to [0, 1] (the uint8 saturation the reference gets implicitly).
+    """
+    w = _preprocess_weight(blur_ksize, float(sigma), frames.device)
+    kh, kw = w.shape[-2:]
+    out = F.conv2d(frames[:, None], w, padding=(kh // 2, kw // 2))[:, 0]
+    return torch.clamp(out, 0.0, 1.0)
 
 
 @functools.lru_cache(maxsize=64)

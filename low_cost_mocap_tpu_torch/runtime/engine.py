@@ -17,7 +17,9 @@ Ingest paths, chosen at construction (the JAX engine's choice):
 - **sparse / packed** (``host_detect=False``): the lit pixels' indices, or
   the 1-bit bitmap when more than ``sparse_budget`` pixels are lit, go up
   and the ``detect_blobs`` kernel detects on the card;
-- **dense** (``fast_path=False``): uint8 frames go up whole.
+- **dense** (``fast_path=False``, and with ``preprocess_frames``): uint8
+  frames go up whole, and with ``preprocess_frames`` are blurred and
+  sharpened on the card before detection.
 
 Each step's outputs come back as one packed row per frame.  With
 ``readback_pipeline_depth`` = d > 0 the row's copy into a page-locked host
@@ -28,18 +30,27 @@ waits on their events, decodes and emits, and launches nothing on the
 card.  Every path serves with the matcher's observations (``with_obs``),
 which live recalibration collects.
 
+A rig with body templates (``RigConfig.body_markers`` / ``body_sets``)
+adds 6-DoF body fits and tracks to every row and ``bodies`` /
+``tracked_bodies`` to the ``object-points`` payload.
+``learn-body-template`` learns a template from the served points and can
+apply it: the row layout, the readback ring and the tracker state are
+rebuilt under the model lock, and rows still pending in the old layout
+are dropped; every readback carries the ring and layout it was read with,
+so no row is decoded with another layout.
+
 The calibration workflow runs on the engine's device: extrinsics from a
 wand capture (RANSAC pose bootstrap + bundle adjustment), scale, floor and
 origin, live refinement from the served frames' observations, and
 intrinsics from a dot-grid target.  ``run-trajectory`` drips a planned
 trajectory to the drone link, one tick per decoded frame.
+``record-frames`` keeps the raw frames for a replayable .npz, and
+``capture-profile`` writes a ``torch.profiler`` trace of the serving loop
+from a thread of its own.
 
 No path changes quietly: a native library that does not build raises, and
 a CPU engine is only ever one the caller asked for (``device="cpu"``).
-
-Not ported yet (their events raise ``NotImplementedError``, which the
-server returns to the client): rigid-body templates, recording and
-profiling.  Mesh mode (camera-sharded serving) raises too.
+Mesh mode (camera-sharded serving) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -47,9 +58,10 @@ from __future__ import annotations
 import collections
 import dataclasses
 import os
+import tempfile
 import threading
 import time
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -60,29 +72,24 @@ from low_cost_mocap_tpu_torch.control import bindings
 from low_cost_mocap_tpu_torch.device import resolve_device
 from low_cost_mocap_tpu_torch.models import calibrator
 from low_cost_mocap_tpu_torch.models.pipeline import (frame_step,
+                                                      make_init_state,
                                                       pack_outputs,
                                                       row_length,
                                                       scan_track_from_blobs,
                                                       track_from_blobs,
-                                                      unpack_outputs,
                                                       unpack_outputs_batch)
 from low_cost_mocap_tpu_torch.ops import ba as ba_ops
 from low_cost_mocap_tpu_torch.ops import camera as cam_ops
-from low_cost_mocap_tpu_torch.ops import correspond, intrinsics, kalman
+from low_cost_mocap_tpu_torch.ops import correspond, intrinsics
 from low_cost_mocap_tpu_torch.ops import triangulate as tri_ops
 from low_cost_mocap_tpu_torch.ops import world
 from low_cost_mocap_tpu_torch.ops.detect import (sparse_ingest,
                                                  threshold_cutoff)
+from low_cost_mocap_tpu_torch.ops.rigid_general import learn_template
+from low_cost_mocap_tpu_torch.ops.rotations import quat_to_matrix_np
 from low_cost_mocap_tpu_torch.runtime.health import CameraHealthMonitor
-from low_cost_mocap_tpu_torch.utils import artifacts
-from low_cost_mocap_tpu_torch.utils.profiling import StageTimer
-
-# events whose handlers belong to later slices of the port
-_NOT_PORTED = {
-    "learn-body-template": "rigid-body templates",
-    "record-frames": "recording",
-    "capture-profile": "profiling",
-}
+from low_cost_mocap_tpu_torch.utils import artifacts, profiling
+from low_cost_mocap_tpu_torch.utils.recordings import save_recording
 
 
 class _HostRing:
@@ -123,8 +130,20 @@ class _HostRing:
             self.events[i].synchronize()
 
 
+class _Readback(NamedTuple):
+    """A packed row (or (B, L) rows) on its way back: the ring and slot it
+    is copied into, the layout that decodes it and the body-slot ->
+    template map of that layout."""
+
+    ring: _HostRing
+    slot: int
+    layout: tuple
+    set_of_slot: np.ndarray
+
+
 class Engine:
     def __init__(self, rig: RigConfig, cfg: EngineConfig, source, link,
+                 preprocess_frames: bool = False,
                  fast_path: bool | None = None,
                  host_detect: bool | None = None,
                  artifacts_dir: str | None = None, device=None, mesh=None):
@@ -132,19 +151,27 @@ class Engine:
         (raises without it); ``"cpu"`` runs the plain versions of the
         kernels.
 
+        ``preprocess_frames``: blur + sharpen dense frames on the device
+        before detection; it needs dense ingest, so asking for it together
+        with the fast path or host detection raises.
         ``fast_path`` (default: on for a CUDA engine, or when host detection
-        is asked for): 1-bit / sparse ingest; off means dense uint8 frames.
-        ``host_detect`` (default: the fast path) detects blobs on the host
-        with the native library, which must build.  ``dispatch_batch > 1``
-        needs host detection.  ``mesh`` (camera-sharded serving) is not
-        ported yet."""
+        is asked for; off with ``preprocess_frames``): 1-bit / sparse
+        ingest; off means dense uint8 frames.  ``host_detect`` (default:
+        the fast path) detects blobs on the host with the native library,
+        which must build.  ``dispatch_batch > 1`` needs host detection.
+        ``mesh`` (camera-sharded serving) is not ported yet."""
         if mesh is not None:
             raise NotImplementedError(
                 "mesh mode (camera-sharded serving) is not ported yet")
-        rig.body_sets_resolved()   # raises for rigid-body templates
         self.device = resolve_device(device)
+        if preprocess_frames and (fast_path or host_detect):
+            raise ValueError(
+                "preprocess_frames blurs dense frames on the device; it "
+                "takes neither the fast path nor host detection")
+        self._preprocess = bool(preprocess_frames)
         if fast_path is None:
-            fast_path = self.device.type == "cuda" or bool(host_detect)
+            fast_path = not self._preprocess and (
+                self.device.type == "cuda" or bool(host_detect))
         if host_detect is None:
             host_detect = fast_path
         if host_detect and not fast_path:
@@ -198,14 +225,19 @@ class Engine:
         self._traj: dict | None = None
         self._refine_obs: list | None = None
         self._intrinsics_capture: dict | None = None
+        self._learning_frames: list | None = None
+        # record-frames: the capture thread appends under _frame_lock
+        self._recording: list | None = None
+        self._recording_cap = 0
         self.artifacts_dir = artifacts_dir
         if artifacts_dir:
             # persisted intrinsics replace the rig's before K is built
             self.rig = rig = self._load_intrinsics_artifact(rig)
 
         # _model_lock guards the step's state (calibration tensors, the
-        # Kalman state, the pending readbacks and the batch being filled)
-        # against server threads swapping it while the capture loop steps;
+        # tracker state, the row layout and readback ring, the pending
+        # readbacks and the batch being filled) against server threads
+        # swapping it while the capture loop steps;
         # _frame_lock guards the frames and outputs the stream displays
         self._model_lock = threading.Lock()
         self._frame_lock = threading.Lock()
@@ -219,45 +251,26 @@ class Engine:
         self._F_np = None          # host copy for the epiline overlay
         self._F_np_src = None
         self._M = torch.as_tensor(self.to_world_matrix, device=dev)
-        self._kalman_state = kalman.init_state(rig.num_objects, device=dev)
+        self._kalman_state = make_init_state(rig, device=dev)
         if artifacts_dir:
             self._load_calibration_artifact()   # resume the calibration
 
-        self._tail_kw = dict(
-            gate_px=cfg.epipolar_gate_px,
-            max_candidates=cfg.max_candidates_per_cam,
-            marker_dist1=rig.marker_dist_short,
-            marker_dist2=rig.marker_dist_long,
-            marker_tol=rig.marker_dist_tol,
-            marker_side_min=rig.marker_side_min,
-            kalman_report=cfg.kalman_report,
-            with_obs=True)
-        self._step_kw = dict(threshold=cfg.detect_threshold,
-                             max_blobs=cfg.max_blobs, cc_iters=cfg.cc_iters,
-                             do_preprocess=False, **self._tail_kw)
         self._cutoff = threshold_cutoff(cfg.detect_threshold)
-        C, K, O = rig.num_cameras, cfg.max_blobs, rig.num_objects
-        self._layout = (C, K, O, True)     # rows carry the observations
-        # host buffers: host-detect ingest (one frame set, or two batches
-        # so one fills while the other's upload may be in flight) and
-        # readback rows; the row ring outlasts the deepest pipeline plus
-        # the emit worker's backlog
+        C, K = rig.num_cameras, cfg.max_blobs
+        # host buffers for host-detect ingest: one frame set, or two
+        # batches so one fills while the other's upload may be in flight
         self._ingest_ring = None
         if self._batch > 1:
             self._ingest_ring = _HostRing(2, (self._batch, C, K, 3), dev)
-            rows_shape = (self._batch, row_length(*self._layout))
-        else:
-            if self._host_detect:
-                self._ingest_ring = _HostRing(4, (C, K, 3), dev)
-            rows_shape = (row_length(*self._layout),)
-        self._row_ring = _HostRing(max(cfg.readback_pipeline_depth, 4) + 2,
-                                   rows_shape, dev)
+        elif self._host_detect:
+            self._ingest_ring = _HostRing(4, (C, K, 3), dev)
+        self._configure_step()
         self._pending: collections.deque = collections.deque()
         self._batch_slot: int | None = None    # ingest slot being filled
         self._batch_dts: list = []
         self._batch_pending: collections.deque = collections.deque()
 
-        self.timer = StageTimer()
+        self.timer = profiling.StageTimer()
         self._listeners: dict[str, list[Callable[[Any], None]]] = {}
         self._thread: threading.Thread | None = None
         self._running = False
@@ -274,6 +287,61 @@ class Engine:
             dark_frames=cfg.health_dark_frames,
             interval=cfg.health_interval)
             if cfg.health_enabled else None)
+
+    def _configure_step(self) -> None:
+        """The step's arguments, the packed-row layout and the readback
+        ring for ``self.rig``: at construction, and under the model lock
+        when learn-body-template applies a template (the row grows by 25
+        floats a body slot)."""
+        rig, cfg = self.rig, self.cfg
+        sets = rig.body_sets_resolved()
+        self._tail_kw = dict(
+            gate_px=cfg.epipolar_gate_px,
+            max_candidates=cfg.max_candidates_per_cam,
+            marker_dist1=rig.marker_dist_short,
+            marker_dist2=rig.marker_dist_long,
+            marker_tol=rig.marker_dist_tol,
+            marker_side_min=rig.marker_side_min,
+            body_sets=sets,
+            kalman_report=cfg.kalman_report,
+            with_obs=True)
+        self._step_kw = dict(threshold=cfg.detect_threshold,
+                             max_blobs=cfg.max_blobs, cc_iters=cfg.cc_iters,
+                             do_preprocess=self._preprocess, **self._tail_kw)
+        # body output slot -> template (set) index, for client payloads
+        self._body_set_of_slot = np.asarray(
+            [si for si, (_, mi) in enumerate(sets) for _ in range(mi)],
+            np.int32)
+        # rows carry the observations, and the body slots
+        self._layout = (rig.num_cameras, cfg.max_blobs, rig.num_objects,
+                        True, len(self._body_set_of_slot))
+        L = row_length(*self._layout)
+        # the row ring outlasts the deepest pipeline plus the emit
+        # worker's backlog
+        self._row_ring = _HostRing(max(cfg.readback_pipeline_depth, 4) + 2,
+                                   (self._batch, L) if self._batch > 1
+                                   else (L,), self.device)
+
+    def _apply_rig(self, rig: RigConfig) -> None:
+        """Serve ``rig`` (new body templates) from the next frame on: a new
+        row layout and readback ring and a fresh tracker state; the rows
+        and frames still pending in the old layout are dropped.  A batch
+        the emit worker has already taken decodes with the ring and layout
+        it was read with."""
+        with self._model_lock:
+            old = self._row_ring
+            self.rig = rig
+            self._configure_step()
+            self._kalman_state = make_init_state(rig, device=self.device)
+            self._pending.clear()
+            self._batch_pending.clear()
+            self._batch_slot = None
+            self._batch_dts = []
+            # copies into the dropped rows may still be in flight: the old
+            # ring's page-locked buffers must outlive them
+            for i in range(len(old.bufs)):
+                old.wait(i)
+            self._batch_cond.notify_all()
 
     # ------------------------------------------------------------ events
 
@@ -301,10 +369,6 @@ class Engine:
     # One method per reference Socket.IO event.
 
     def handle(self, event: str, data: Any) -> None:
-        if event in _NOT_PORTED:
-            raise NotImplementedError(
-                f"event {event!r} ({_NOT_PORTED[event]}) is not ported to "
-                "the PyTorch engine yet")
         fn = getattr(self, "handle_" + event.replace("-", "_"), None)
         if fn is None:
             raise KeyError(f"unknown event {event!r}")
@@ -335,10 +399,9 @@ class Engine:
             if data.get("toWorldCoordsMatrix") is not None:
                 self.set_to_world_matrix(
                     np.asarray(data["toWorldCoordsMatrix"], np.float32))
-            state = kalman.init_state(self.rig.num_objects,
-                                      device=self.device)
             with self._model_lock:
-                self._kalman_state = state
+                self._kalman_state = make_init_state(self.rig,
+                                                     device=self.device)
                 self._pending.clear()      # pre-reset in-flight readbacks
                 self._batch_slot = None    # pre-reset buffered frames
                 self._batch_dts = []
@@ -500,6 +563,93 @@ class Engine:
             "camera_poses": camera_poses_to_serializable(Rs, ts),
             "refined_from_points": int(len(pts)),
         })
+
+    def handle_learn_body_template(self, data):
+        """Learn a rigid-body template from the served points
+        (``ops/rigid_general.learn_template``, on the engine's device).
+
+        start: collect every triangulated frame's points.  stop: learn and
+        emit ``body-template`` {markers, frames_used}; with ``apply``, track
+        the learned template from the next frame on (``maxBodies``
+        instances, default ``rig.max_bodies``)."""
+        if data["startOrStop"] == "start":
+            with self._live_lock:
+                self._learning_frames = []
+            return
+        with self._live_lock:
+            frames, self._learning_frames = self._learning_frames, None
+        if not frames:
+            self.emit("body-template", {"error": "no frames captured"})
+            return
+        try:
+            tmpl = learn_template(np.stack([f[0] for f in frames]),
+                                  np.stack([f[1] for f in frames]),
+                                  device=self.device)
+        except ValueError as e:
+            self.emit("body-template", {"error": str(e)})
+            return
+        payload = {"markers": [list(m) for m in tmpl.markers],
+                   "frames_used": len(frames), "error": None}
+        if data.get("apply"):
+            self._apply_rig(dataclasses.replace(
+                self.rig, body_markers=tmpl.markers,
+                max_bodies=int(data.get("maxBodies", self.rig.max_bodies))))
+            payload["applied"] = True
+        self.emit("body-template", payload)
+
+    def handle_record_frames(self, data):
+        """Record the raw camera stream to a replayable .npz
+        (``utils/recordings.py``, replayed by ``RecordedSource``).  start:
+        keep every frame set read, up to ``maxFrames`` (default 600); stop:
+        save to ``path`` (default: a timestamped file in the artifacts or
+        temporary directory) and emit ``recording`` {path, frames}."""
+        if data["startOrStop"] == "start":
+            with self._frame_lock:
+                self._recording_cap = int(data.get("maxFrames", 600))
+                self._recording = []
+            return
+        # swapped under the frame lock, which the capture thread appends
+        # under, so no append lands while the frames are stacked
+        with self._frame_lock:
+            frames, self._recording = self._recording, None
+        if not frames:
+            self.emit("recording", {"error": "no frames recorded"})
+            return
+        path = data.get("path") or os.path.join(
+            self.artifacts_dir or tempfile.gettempdir(),
+            f"recording-{int(time.time())}.npz")
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        save_recording(path, np.stack(frames), fps=max(self.fps, 1.0),
+                       meta={"num_cameras": self.rig.num_cameras})
+        self.emit("recording",
+                  {"path": path, "frames": len(frames), "error": None})
+
+    def handle_capture_profile(self, data):
+        """Trace the serving loop with ``torch.profiler`` for ``durationMs``
+        (default 500) from a thread of its own while the capture loop goes
+        on (``utils/profiling.device_trace``: the card's kernels, whichever
+        thread launched them, on a CUDA engine).  Emits ``profile`` with the
+        Chrome trace's path, or with ``error`` when the profiler cannot
+        start (one is already running)."""
+        duration_s = float(data.get("durationMs", 500)) / 1e3
+        log_dir = data.get("path") or os.path.join(
+            self.artifacts_dir or tempfile.gettempdir(), "profiles",
+            f"trace-{int(time.time())}")
+        os.makedirs(log_dir, exist_ok=True)
+
+        def capture():
+            try:
+                with profiling.device_trace(log_dir, self.device) as path:
+                    time.sleep(duration_s)
+            except Exception as e:   # reported to the client
+                self.emit("profile", {"error": str(e)})
+                return
+            self.emit("profile", {"path": path,
+                                  "durationMs": duration_s * 1e3,
+                                  "error": None})
+
+        threading.Thread(target=capture, daemon=True,
+                         name="lcm-profile").start()
 
     def handle_calibrate_intrinsics(self, data):
         """Intrinsic calibration from a handheld dot-grid target
@@ -851,19 +1001,16 @@ class Engine:
         while True:
             with self._model_lock:
                 if self._batch_pending:
-                    item = self._batch_pending.popleft()
+                    rb, dts = self._batch_pending.popleft()
                     with self.timer.stage("batch-decode"):
-                        outs = self._decode_batch(item)
-                    dts = item[2]
+                        outs = self._decode(rb)
                 elif self._pending:
-                    slot, dt = self._pending.popleft()
-                    outs = [unpack_outputs(self._harvest(slot),
-                                           *self._layout)]
-                    dts = [dt]
+                    rb, dt = self._pending.popleft()
+                    outs, dts = self._decode(rb), [dt]
                 else:
                     return
             with self.timer.stage("batch-emit"):
-                self._emit_batch_outs(outs, dts)
+                self._emit_batch_outs(outs, dts, rb.set_of_slot)
 
     def _emit_worker_loop(self) -> None:
         """batch_emit_thread worker: pop dispatched batches in order, wait
@@ -875,14 +1022,14 @@ class Engine:
                     if self._emit_worker is None:   # stop() requested
                         return
                     self._batch_cond.wait(timeout=0.2)
-                item = self._batch_pending.popleft()
+                rb, dts = self._batch_pending.popleft()
                 self._emit_worker_busy = True
                 self._batch_cond.notify_all()       # release backpressure
             try:
                 with self.timer.stage("batch-decode"):
-                    outs = self._decode_batch(item)
+                    outs = self._decode(rb)
                 with self.timer.stage("batch-emit"):
-                    self._emit_batch_outs(outs, item[2])
+                    self._emit_batch_outs(outs, dts, rb.set_of_slot)
             except Exception as e:   # a bad batch must not wedge the drain
                 self.emit("engine-error",
                           {"error": f"batch emit worker: {e}"})
@@ -938,19 +1085,24 @@ class Engine:
             return host.to(self.device, non_blocking=True)
         return host.clone()
 
-    def _readback(self, rows: torch.Tensor) -> int:
+    def _readback(self, rows: torch.Tensor) -> _Readback:
         """Enqueue the copy of a packed row (or (B, L) rows) into the next
-        host slot, with its event after it; returns the slot."""
-        i = self._row_ring.acquire()
-        self._row_ring.bufs[i].copy_(rows, non_blocking=True)
-        self._row_ring.fence(i)
-        return i
+        host slot, with its event after it (under the model lock)."""
+        ring = self._row_ring
+        i = ring.acquire()
+        ring.bufs[i].copy_(rows, non_blocking=True)
+        ring.fence(i)
+        return _Readback(ring, i, self._layout, self._body_set_of_slot)
 
-    def _harvest(self, slot: int) -> np.ndarray:
-        """The rows of a readback slot, once its event has completed (a
-        copy: the slot is reused)."""
-        self._row_ring.wait(slot)
-        return self._row_ring.bufs[slot].numpy().copy()
+    @staticmethod
+    def _decode(rb: _Readback) -> list:
+        """The readback's rows, once its event has completed, decoded with
+        the layout they were written in: one FrameOutputs a row."""
+        rb.ring.wait(rb.slot)
+        # a copy: the slot is reused
+        rows = rb.ring.bufs[rb.slot].numpy().copy()
+        return unpack_outputs_batch(rows.reshape(-1, rows.shape[-1]),
+                                    *rb.layout)
 
     def _ingest_host_detect(self, frames: np.ndarray, slot: int,
                             index=()) -> None:
@@ -968,9 +1120,15 @@ class Engine:
         not capturing, while a batch fills, or while the pipeline fills."""
         with self._frame_lock:
             self._last_frames = frames
+            # record-frames swaps the list under this lock; always a copy,
+            # since a source may reuse its read buffer
+            rec = self._recording
+            if rec is not None and len(rec) < self._recording_cap:
+                rec.append(np.array(frames, np.uint8))
 
         if self.health is not None:
-            # frozen-transport detection on the raw stream; a frozen camera
+            # frozen-transport detection on the raw stream (the recording
+            # keeps it unmasked); a frozen camera
             # is masked below and rejoins when its frames move again
             for cam, status in self.health.update(frames):
                 self.emit("camera-health",
@@ -1019,18 +1177,18 @@ class Engine:
         with self._model_lock:
             with self.timer.stage("step"):
                 self._kalman_state, out = self._step(kind, payload, dt32)
-                slot = self._readback(pack_outputs(out))
+                rb = self._readback(pack_outputs(out))
             depth = self.cfg.readback_pipeline_depth
             if depth > 0:
                 # each row keeps its own frame's dt for the trajectory tick
-                self._pending.append((slot, dt))
+                self._pending.append((rb, dt))
                 if len(self._pending) <= depth:
                     return None
-                slot, dt = self._pending.popleft()
+                rb, dt = self._pending.popleft()
             with self.timer.stage("readback"):
-                out = unpack_outputs(self._harvest(slot), *self._layout)
+                out = self._decode(rb)[0]
 
-        self._emit_frame_outputs(out)
+        self._emit_frame_outputs(out, rb.set_of_slot)
         self._advance_trajectory(out, float(dt))
         with self._frame_lock:
             self._last_out = out
@@ -1077,9 +1235,9 @@ class Engine:
                     self._kalman_state, blobs[..., :2], blobs[..., 2] > 0.5,
                     dl, self._Ps, self._K, self._dist, self._M, self._F,
                     **self._tail_kw)
-                # the row layout is snapshotted with the rows it describes,
+                # the readback carries the layout of the rows it reads,
                 # the dts go along for the trajectory ticks
-                item = (self._readback(rows), self._layout, dl)
+                item = (self._readback(rows), dl)
             if self._emit_worker is not None:
                 # the worker waits for the readback, decodes and emits;
                 # the capture loop never blocks on a readback
@@ -1097,28 +1255,27 @@ class Engine:
                 if len(self._batch_pending) <= depth:
                     return None
                 item = self._batch_pending.popleft()
+            rb, dl = item
             with self.timer.stage("batch-decode"):
-                outs = self._decode_batch(item)
+                outs = self._decode(rb)
         with self.timer.stage("batch-emit"):
-            return self._emit_batch_outs(outs, item[2])
+            return self._emit_batch_outs(outs, dl, rb.set_of_slot)
 
-    def _decode_batch(self, item) -> list:
-        slot, layout, _ = item
-        return unpack_outputs_batch(self._harvest(slot), *layout)
-
-    def _emit_batch_outs(self, outs: list, dts):
+    def _emit_batch_outs(self, outs: list, dts, set_of_slot):
         """Emit outputs in frame order (outside the model lock), one
         trajectory tick each, and return the newest."""
         for o, dt in zip(outs, dts):
-            self._emit_frame_outputs(o)
+            self._emit_frame_outputs(o, set_of_slot)
             self._advance_trajectory(o, float(dt))
         with self._frame_lock:
             self._last_out = outs[-1]
         return outs[-1]
 
-    def _emit_frame_outputs(self, out) -> None:
+    def _emit_frame_outputs(self, out, set_of_slot) -> None:
         """Per-frame fan-out: health counters, the mode-gated reference
-        emits (image-points / object-points), the armed drones' pose feed.
+        emits (image-points / object-points, with the body fits and tracks
+        of a rig with templates: ``set_of_slot`` maps each body slot to its
+        template), the armed drones' pose feed and the live collections.
         Shared by the per-frame and batched paths."""
         if self.health is not None:
             counts = np.asarray(out.blob_valid).sum(axis=1)
@@ -1138,16 +1295,17 @@ class Engine:
                 self.emit("image-points", image_points)
         elif self.is_triangulating_points:
             pv = out.point_valid
-            if pv.any():
-                with self._live_lock:
-                    # live recalibration keeps this frame's valid points'
-                    # observations (capped, so that a refinement never
-                    # stopped cannot grow without bound)
-                    obs = self._refine_obs
-                    if (obs is not None
-                            and sum(len(o) for o, _ in obs) < 4096):
-                        obs.append((out.point_obs[pv],
-                                    out.point_obs_mask[pv]))
+            with self._live_lock:
+                # learn-body-template keeps every frame's points; live
+                # recalibration this frame's valid points' observations
+                # (capped, so that a refinement never stopped cannot grow
+                # without bound)
+                if self._learning_frames is not None:
+                    self._learning_frames.append((out.object_points, pv))
+                obs = self._refine_obs
+                if (obs is not None and pv.any()
+                        and sum(len(o) for o, _ in obs) < 4096):
+                    obs.append((out.point_obs[pv], out.point_obs_mask[pv]))
             # payloads are built only for listeners; the armed pose feed
             # runs at full rate regardless
             want_payload = bool(self._listeners.get("object-points"))
@@ -1192,12 +1350,31 @@ class Engine:
                         })
             if not want_payload:
                 return
-            self.emit("object-points", {
+            payload = {
                 "object_points": out.object_points[pv].tolist(),
                 "errors": out.point_errors[pv].tolist(),
                 "objects": objects,
                 "filtered_objects": filtered,
-            })
+            }
+            if out.bodies is not None:
+                # 6-DoF body fits and their tracks (fields the reference
+                # client ignores)
+                b, tb = out.bodies, out.tracked_bodies
+                payload["bodies"] = [{
+                    "R": b.R[i].tolist(),
+                    "t": b.t[i].tolist(),
+                    "rms": float(b.rms[i]),
+                    "templateIndex": int(set_of_slot[i]),
+                } for i in np.where(b.valid)[0]]
+                payload["tracked_bodies"] = [{
+                    "bodyIndex": int(i),
+                    "templateIndex": int(set_of_slot[i]),
+                    "pos": tb.pos[i].tolist(),
+                    "vel": tb.vel[i].tolist(),
+                    "quat": tb.quat[i].tolist(),
+                    "R": quat_to_matrix_np(tb.quat[i]).tolist(),
+                } for i in np.where(tb.valid)[0]]
+            self.emit("object-points", payload)
 
     # ------------------------------------------------------------ frames
 

@@ -19,7 +19,7 @@ No flask / flask-socketio dependency: the protocol subset needed is small
 (see ``runtime/wsproto.py``).
 
 The port's counterpart of ``low_cost_mocap_tpu/runtime/server.py``, bound
-to the port's ``Engine``.  An event whose handler is not ported yet gets
+to the port's ``Engine``.  An event whose handler raises gets
 the usual ``server-error`` reply, like an unknown event.
 """
 

@@ -3,14 +3,16 @@
 Boots source + engine + API server + operator console in one process, as
 ``python -m low_cost_mocap_tpu.serve`` does for the JAX package, with the
 same options.  The engine runs on the CUDA card (``resolve_device``) and
-raises without one; ``main(device="cpu")`` runs it on the CPU.  Options of
-slices not ported yet (``--cam-shards``, ``--body-markers``,
-``--body-sets``) raise ``NotImplementedError``.
+raises without one; ``main(device="cpu")`` runs it on the CPU.
+``--cam-shards`` (camera-sharded serving) is not ported yet and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import threading
 import time
 
@@ -60,12 +62,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--calibration",
                    help="calibration artifact (json) to load")
     p.add_argument("--body-markers",
-                   help="rigid-body template (not ported yet)")
+                   help="JSON [[x,y,z],...] rigid-body template (engine "
+                        "world frame) to 6-DoF-track alongside the drones")
     p.add_argument("--max-bodies", type=int, default=2,
-                   help="instances per body template (with --body-markers; "
-                        "kept so the JAX launcher's command lines parse)")
-    p.add_argument("--body-sets", help="rigid-body templates (not ported "
-                                       "yet)")
+                   help="instances of the --body-markers template")
+    p.add_argument("--body-sets",
+                   help="JSON [[[[x,y,z],...], maxInstances], ...] — "
+                        "further distinct rigid-body templates tracked "
+                        "simultaneously (see RigConfig.body_sets)")
     p.add_argument("--cam-shards", type=int, default=0,
                    help="camera-sharded serving (not ported yet)")
     p.add_argument("--artifacts-dir", default="artifacts",
@@ -86,9 +90,16 @@ def build(args: argparse.Namespace, device=None):
     if args.cam_shards:
         raise NotImplementedError(
             "--cam-shards (camera-sharded serving) is not ported yet")
-    if args.body_markers or args.body_sets:
-        raise NotImplementedError(
-            "--body-markers / --body-sets (rigid bodies) are not ported yet")
+    body_kw = {}
+    if args.body_markers:
+        body_kw = dict(
+            body_markers=tuple(tuple(m)
+                               for m in json.loads(args.body_markers)),
+            max_bodies=args.max_bodies)
+    if args.body_sets:
+        body_kw["body_sets"] = tuple(
+            (tuple(tuple(m) for m in markers), int(max_inst))
+            for markers, max_inst in json.loads(args.body_sets))
     cfg = EngineConfig(target_fps=args.fps,
                        readback_pipeline_depth=READBACK_DEPTH,
                        weighted_centroids=args.weighted_centroids,
@@ -105,6 +116,7 @@ def build(args: argparse.Namespace, device=None):
     if args.source == "synthetic":
         Rs, ts, rig = syn.ring_rig(num_cameras=args.cameras,
                                    image_size=image_size)
+        rig = dataclasses.replace(rig, **body_kw)
         source = sources.SyntheticSource(rig, Rs, ts,
                                          num_drones=args.drones)
     elif args.source == "recorded":
@@ -112,9 +124,10 @@ def build(args: argparse.Namespace, device=None):
             raise ValueError("--recording required with --source recorded")
         source = sources.RecordedSource(args.recording)
         rig = RigConfig(num_cameras=source.num_cameras,
-                        image_size=source.image_size)
+                        image_size=source.image_size, **body_kw)
     else:
-        rig = RigConfig(num_cameras=args.cameras, image_size=image_size)
+        rig = RigConfig(num_cameras=args.cameras, image_size=image_size,
+                        **body_kw)
         source = sources.PseyepySource(rig)
 
     if args.link == "loopback":

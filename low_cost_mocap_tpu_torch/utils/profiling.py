@@ -1,16 +1,33 @@
-"""Step-time metrics of the serving loop.
+"""Tracing and step-time metrics of the serving loop.
 
-``StageTimer``, the port's copy of the JAX package's
-(``low_cost_mocap_tpu/utils/profiling.py``): rolling per-stage wall-time
-stats as one metrics dict, which the engine emits as its ``metrics`` event.
+Counterpart of ``low_cost_mocap_tpu/utils/profiling.py``:
+
+- ``StageTimer``: rolling per-stage wall-time stats as one metrics dict,
+  which the engine emits as its ``metrics`` event;
+- ``device_trace``: a ``torch.profiler`` context that writes a Chrome
+  trace (chrome://tracing, Perfetto) of what the device ran while it was
+  open — CUDA activity, from every thread, on a CUDA device; the calling
+  thread's CPU operators on the CPU;
+- ``time_compiled``: the throughput of a callable, synchronising the
+  device once, after the timed calls.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import os
+import re
 import statistics
+import threading
 import time
+from typing import Any, Callable
+
+import torch
+
+# one profiler per process: a second one started while another runs
+# crashes the process, so device_trace refuses instead
+_trace_lock = threading.Lock()
 
 
 class StageTimer:
@@ -47,3 +64,69 @@ class StageTimer:
                 "n": len(xs),
             }
         return out
+
+
+def lost_kernels(trace_text: str) -> bool:
+    """Whether a Chrome trace lists CUDA runtime calls but no kernel: after
+    earlier profiler sessions in the process, CUPTI can drop every kernel
+    record of a session while keeping the launches and copies."""
+    return (re.search(r'"cat":\s*"cuda_runtime"', trace_text) is not None
+            and re.search(r'"cat":\s*"kernel"', trace_text) is None)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str, device="cuda"):
+    """Profile the block; on exit write ``<log_dir>/trace.json``.  Yields
+    that path.  Raises RuntimeError when a profiler is already running, or
+    when the trace of a CUDA device came back without its kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if not _trace_lock.acquire(blocking=False):
+        raise RuntimeError("a profiler is already running")
+    try:
+        if torch.autograd.profiler._is_profiler_enabled:
+            raise RuntimeError("a profiler is already running")
+        cuda = torch.device(device).type == "cuda"
+        acts = [ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]
+        path = os.path.join(log_dir, "trace.json")
+        with profile(activities=acts) as prof:
+            yield path
+        os.makedirs(log_dir, exist_ok=True)
+        prof.export_chrome_trace(path)
+        if cuda:
+            with open(path) as f:
+                if lost_kernels(f.read()):
+                    raise RuntimeError(
+                        f"the trace {path} lists CUDA calls but no kernel: "
+                        "the profiler lost the kernel records")
+    finally:
+        _trace_lock.release()
+
+
+def _synchronize(out) -> None:
+    """Wait for the device of the first CUDA tensor in ``out``."""
+    leaves = out if isinstance(out, (tuple, list)) else (out,)
+    for x in leaves:
+        if isinstance(x, (tuple, list)):
+            _synchronize(x)
+            return
+        if isinstance(x, torch.Tensor):
+            if x.is_cuda:
+                torch.cuda.synchronize(x.device)
+            return
+
+
+def time_compiled(fn: Callable[..., Any], *args, iters: int = 100,
+                  warmup: int = 3) -> dict[str, float]:
+    """Throughput of ``fn(*args)``: ``warmup`` calls and a synchronise,
+    then ``iters`` calls timed up to one synchronise at the end."""
+    out = None
+    for _ in range(warmup):
+        out = fn(*args)
+    _synchronize(out)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn(*args)
+    _synchronize(out)
+    dt = (time.perf_counter() - t0) / iters
+    return {"mean_ms": dt * 1e3, "hz": 1.0 / dt, "iters": iters}

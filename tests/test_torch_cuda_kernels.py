@@ -4,7 +4,10 @@ not a whole number of propagation tiles, ``cc_iters`` from 0 to more than
 one pass of the kernel holds, an all-lit frame where no tile is skipped,
 one to sixteen blob slots, banks of one object up to more objects than a
 block holds, candidate counts that do not fill a warp or spill past one,
-ties across lanes, and NaN and infinite candidate distances.
+ties across lanes, and NaN and infinite candidate distances.  Beside the
+kernels, the two stages of the body rig that run on the card around them:
+the body stage (6-DoF fits and the body tracker) and the blur + sharpen
+convolution, each held to the port on the CPU.
 
 Both kernels perform the float32 operations of their plain versions in the
 same order (no fused multiply-adds, integer moments), so every output must
@@ -177,3 +180,79 @@ def test_bank_kernel_refuses_mismatched_shapes(dev):
     case[1] = case[1][:, :4]
     with pytest.raises(ValueError, match="shape"):
         kalman_cuda.kalman_scan(kalman.init_state(2, device=dev), *case)
+
+
+@pytest.mark.parametrize("B", [1, 128])
+def test_bank_kernel_at_the_body_rigs_width(dev, B):
+    """16 blob slots on 4 cameras: M = 64 candidates, two drones."""
+    case = [torch.from_numpy(a).to(dev) for a in _bank_case(5, B, 64, 2)]
+    _check_bank(dev, case, 2)
+
+
+def test_body_stage_on_the_card_matches_the_cpu(dev):
+    """Two templates' fits and tracks over a few frames: validity equal,
+    floats within 1e-4 (the card's reductions sum in another order)."""
+    import dataclasses
+
+    from low_cost_mocap_tpu_torch.models import pipeline
+    from low_cost_mocap_tpu_torch.ops import camera, correspond
+    from low_cost_mocap_tpu_torch.utils import synthetic as syn
+
+    tmpl_a = ((0.0, 0.0, 0.0), (0.12, 0.0, 0.0), (0.0, 0.09, 0.0),
+              (0.05, 0.04, 0.07))
+    tmpl_b = ((0.0, 0.0, 0.0), (0.2, 0.0, 0.0), (0.1, 0.16, 0.0),
+              (0.02, 0.05, 0.11))
+    Rs, ts, rig0 = syn.ring_rig(num_cameras=4)
+    rig = dataclasses.replace(rig0, body_markers=tmpl_a, max_bodies=2,
+                              body_sets=((tmpl_b, 1),))
+    sets = rig.body_sets_resolved()
+    kw = dict(gate_px=5.0, max_candidates=2, with_obs=True, body_sets=sets,
+              marker_dist1=rig.marker_dist_short,
+              marker_dist2=rig.marker_dist_long,
+              marker_tol=rig.marker_dist_tol,
+              marker_side_min=rig.marker_side_min)
+    rows = []
+    for d in (torch.device("cpu"), dev):
+        K = torch.as_tensor(rig.K_stack(), device=d)
+        Ps = camera.projection_matrix(K, torch.as_tensor(Rs, device=d),
+                                      torch.as_tensor(ts, device=d))
+        cal = (Ps, K, torch.as_tensor(rig.dist_stack(), device=d),
+               torch.eye(4, device=d), correspond._pairwise_fundamentals(Ps))
+        st, out = pipeline.make_init_state(rig, device=d), []
+        for i in range(4):
+            c, s = np.cos(0.1 * i), np.sin(0.1 * i)
+            R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+            Xw = np.concatenate([
+                np.asarray(tmpl_a, np.float32) @ R.T + [-0.25, 0.1, 0.05],
+                np.asarray(tmpl_b, np.float32) @ R + [0.3, 0.15, -0.1]])
+            X = (Xw[:, [0, 2, 1]] * [-1.0, -1.0, 1.0]).astype(np.float32)
+            pts, mask = syn.observe(X, Rs, ts, rig)
+            blobs = np.zeros((4, 16, 2), np.float32)
+            ok = np.zeros((4, 16), bool)
+            for cam in range(4):
+                vis = np.where(mask[:, cam])[0]
+                blobs[cam, :len(vis)] = pts[vis, cam]
+                ok[cam, :len(vis)] = True
+            st, o = pipeline.track_from_blobs(
+                st, torch.from_numpy(blobs).to(d), torch.from_numpy(ok).to(d),
+                np.float32(1 / 60), *cal, **kw)
+            out.append(pipeline.pack_outputs(o).cpu().numpy())
+        rows.append(np.stack(out))
+    layout = (4, 16, 2, True, 3)
+    for g, w in zip(pipeline.unpack_outputs_batch(rows[1], *layout),
+                    pipeline.unpack_outputs_batch(rows[0], *layout)):
+        np.testing.assert_array_equal(g.bodies.valid, w.bodies.valid)
+        np.testing.assert_array_equal(g.tracked_bodies.valid,
+                                      w.tracked_bodies.valid)
+        for a, b in zip((*g.bodies, *g.tracked_bodies),
+                        (*w.bodies, *w.tracked_bodies)):
+            np.testing.assert_allclose(a, b, atol=1e-4, rtol=0)
+    assert g.bodies.valid[0] and g.bodies.valid[2]
+
+
+def test_preprocess_conv_on_the_card_matches_the_cpu(dev):
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.random((4, 320, 320)).astype(np.float32))
+    got = detect.preprocess(frames.to(dev)).cpu()
+    torch.testing.assert_close(got, detect.preprocess(frames), rtol=0,
+                               atol=1e-5)

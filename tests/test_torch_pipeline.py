@@ -277,17 +277,30 @@ def test_unported_options_raise():
                           device="cpu", host_detect=False)
     assert engine_mod.Engine(rig, EngineConfig(dispatch_batch=4), src, link,
                              device="cpu", host_detect=True)._batch == 4
-    with pytest.raises(NotImplementedError):
+    # camera-sharded serving is the engine option still to port
+    with pytest.raises(NotImplementedError, match="mesh"):
+        engine_mod.Engine(rig, cfg, src, link, device="cpu", mesh=object())
+    # body templates are ported: a template needs three markers, and a rig
+    # with one serves its body slots
+    with pytest.raises(ValueError, match=">= 3 markers"):
         engine_mod.Engine(RigConfig(body_markers=((0, 0, 0),)), cfg, src,
                           link, device="cpu")
+    eng = engine_mod.Engine(
+        RigConfig(body_markers=((0, 0, 0), (0.1, 0, 0), (0, 0.1, 0))), cfg,
+        src, link, device="cpu")
+    assert eng._layout[4] == 2
+    # preprocessing is ported for dense frames; binary ones raise
     frames = torch.from_numpy(src.read_at(0.0))
-    for opt in (dict(do_preprocess=True),
-                dict(do_preprocess=False, body_template=object())):
-        with pytest.raises(NotImplementedError):
-            pipeline.frame_step(
-                kalman.init_state(2, device="cpu"), frames, 1 / 60,
-                *_cal(calib), threshold=0.2, max_blobs=8, cc_iters=24,
-                **tail, **opt)
+    packed = torch.from_numpy(detect.pack_frames(src.read_at(0.0), 0.2))
+    with pytest.raises(ValueError, match="dense frames"):
+        pipeline.frame_step(
+            kalman.init_state(2, device="cpu"), packed, 1 / 60,
+            *_cal(calib), threshold=0.2, max_blobs=8, cc_iters=24,
+            do_preprocess=True, packed_input=True, **tail)
+    _, out = pipeline.frame_step(
+        kalman.init_state(2, device="cpu"), frames, 1 / 60, *_cal(calib),
+        threshold=0.2, max_blobs=8, cc_iters=24, do_preprocess=True, **tail)
+    assert bool(out.blob_valid.any())
 
 
 _BLOCKED_IMPORTS = r"""

@@ -395,10 +395,16 @@ def test_frame_strip_marks_blobs_and_epilines():
 def test_unported_and_unknown_events_and_options_raise():
     Rs, ts, rig, src = _rig_source()
     eng = _cpu_engine(rig, EngineConfig(), src)
-    for event in ("capture-profile", "learn-body-template",
-                  "record-frames"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            eng.handle(event, {})
+    # the events of the later slices are ported: each reaches its handler
+    got = []
+    for event in ("body-template", "recording"):
+        eng.on(event, got.append)
+    eng.handle("learn-body-template", {"startOrStop": "stop"})
+    eng.handle("record-frames", {"startOrStop": "stop"})
+    assert [g["error"] for g in got] == ["no frames captured",
+                                         "no frames recorded"]
+    with pytest.raises(ValueError):
+        eng.handle("capture-profile", {"durationMs": "soon"})
     with pytest.raises(KeyError, match="bogus"):
         eng.handle("bogus", {})
     with pytest.raises(NotImplementedError, match="mesh"):
@@ -410,7 +416,7 @@ def test_unported_and_unknown_events_and_options_raise():
     with pytest.raises(ValueError, match="fast path"):
         Engine(rig, EngineConfig(), src, CollectingLink(), device="cpu",
                fast_path=False, host_detect=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match=">= 3 markers"):
         Engine(RigConfig(body_markers=((0, 0, 0),)), EngineConfig(), src,
                CollectingLink(), device="cpu")
     # a CPU engine is dense unless host detection is asked for

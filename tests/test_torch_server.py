@@ -220,9 +220,12 @@ def test_polling_upgrade_to_websocket(server):
 
 @pytest.mark.parametrize("event", ["bogus-event", "capture-profile"])
 def test_unknown_and_unported_events_return_server_error(server, event):
+    """An unknown event, and an event whose handler raises (a profile of
+    no duration), get ``server-error``."""
     srv, eng, source = server
     c = SioClient("127.0.0.1", srv.port).connect()
-    c.emit(event, {"x": 1})
+    c.emit(event, {"durationMs": "soon"} if event == "capture-profile"
+           else {"x": 1})
     p = c.wait_packet(lambda p: p.startswith('42["server-error"'))
     assert event in p
     # the connection and the engine go on serving
@@ -337,7 +340,14 @@ def test_serve_builds_on_the_card_by_default(monkeypatch, tmp_path):
     assert engine.device.type == "cpu" and engine.camera_poses is not None
     assert engine.cfg.readback_pipeline_depth == serve.READBACK_DEPTH
     assert (tmp_path / "calibration.json").exists()
-    for opt in (["--cam-shards", "2"], ["--body-markers", "[[0,0,0]]"],
-                ["--body-sets", "[]"]):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            serve.build(serve.parse_args(opt), device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        serve.build(serve.parse_args(["--cam-shards", "2"]), device="cpu")
+    # the body options are ported: a one-marker template is refused
+    with pytest.raises(ValueError, match=">= 3 markers"):
+        serve.build(serve.parse_args(["--body-markers", "[[0,0,0]]",
+                                      "--artifacts-dir", str(tmp_path)]),
+                    device="cpu")
+    engine, *_ = serve.build(serve.parse_args(
+        ["--body-sets", "[]", "--artifacts-dir", str(tmp_path)]),
+        device="cpu")
+    assert engine._layout[4] == 0
