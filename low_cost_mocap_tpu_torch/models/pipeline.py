@@ -13,6 +13,10 @@ batch axis, so per-frame tracking (``track_from_blobs``, B = 1) and batched
 serving (``scan_track_from_blobs``) run the same code and the same bank
 kernel.
 
+``MocapPipeline`` holds a rig's calibration on one device and steps
+frames; ``batched_track_from_blobs`` serves R rigs in one call, rig by
+rig (the bank kernel launches once per rig).
+
 Frames come in dense (uint8 or float), as 1-bit packed rows, or as the
 lit pixels' indices (sparse ingest, ``ops.detect.sparse_ingest``).
 ``do_preprocess`` blurs and sharpens dense frames before detection.
@@ -36,11 +40,13 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from low_cost_mocap_tpu_torch.device import resolve_device
 from low_cost_mocap_tpu_torch.ops import body_tracker
 from low_cost_mocap_tpu_torch.ops import camera as cam_ops
 from low_cost_mocap_tpu_torch.ops import (correspond, detect, detect_cuda,
                                           kalman, kalman_cuda, rigid,
                                           rigid_general, world)
+from low_cost_mocap_tpu_torch.utils import tree
 
 
 class FrameOutputs(NamedTuple):
@@ -154,6 +160,52 @@ def unpack_outputs(arr: np.ndarray, num_cameras: int, max_blobs: int,
     return unpack_outputs_batch(np.asarray(arr)[None], num_cameras,
                                 max_blobs, num_objects, with_obs,
                                 num_bodies)[0]
+
+
+class MocapPipeline:
+    """Rig geometry on one device and the per-frame step over it.
+
+    ``step(state, frames, dt)`` runs ``frame_step`` on (C, H, W) float (or
+    uint8) frames with the engine config's detection and matching settings
+    and the rig's body sets; ``preprocess_frames`` blurs and sharpens them
+    first.  ``device``: CUDA by default, "cpu" when asked."""
+
+    def __init__(self, rig, engine, Rs, ts, to_world_matrix=None,
+                 preprocess_frames: bool = True, device=None):
+        self.rig = rig
+        self.engine = engine
+        self.device = dev = resolve_device(device)
+        self.K = torch.as_tensor(rig.K_stack(), device=dev)
+        self.dist = torch.as_tensor(rig.dist_stack(), device=dev)
+        self.Rs = torch.as_tensor(np.asarray(Rs, np.float32), device=dev)
+        self.ts = torch.as_tensor(np.asarray(ts, np.float32), device=dev)
+        self.Ps = cam_ops.projection_matrix(self.K, self.Rs, self.ts)
+        if to_world_matrix is None:
+            to_world_matrix = np.eye(4, dtype=np.float32)
+        self.to_world_matrix = torch.as_tensor(
+            np.asarray(to_world_matrix, np.float32), device=dev)
+        self.Fs = correspond._pairwise_fundamentals(self.Ps)
+        self.preprocess_frames = preprocess_frames
+        e = engine
+        self._kw = dict(
+            threshold=e.detect_threshold, max_blobs=e.max_blobs,
+            cc_iters=e.cc_iters, gate_px=e.epipolar_gate_px,
+            max_candidates=e.max_candidates_per_cam,
+            marker_dist1=rig.marker_dist_short,
+            marker_dist2=rig.marker_dist_long,
+            marker_tol=rig.marker_dist_tol,
+            marker_side_min=rig.marker_side_min,
+            do_preprocess=preprocess_frames,
+            body_sets=rig.body_sets_resolved())
+
+    def init_state(self):
+        return make_init_state(self.rig, device=self.device)
+
+    def step(self, state, frames, dt):
+        """One frame: (state, (C, H, W) frames, dt) -> (state, outputs)."""
+        frames = torch.as_tensor(frames, device=self.device)
+        return frame_step(state, frames, dt, self.Ps, self.K, self.dist,
+                          self.to_world_matrix, self.Fs, **self._kw)
 
 
 def make_init_state(rig, device=None):
@@ -379,3 +431,22 @@ def frame_step(state, frames, dt, Ps, K, dist, to_world_matrix, Fs=None, *,
         body_template=body_template, max_bodies=max_bodies,
         body_sets=body_sets, with_obs=with_obs,
         kalman_report=kalman_report, kalman_impl=kalman_impl)
+
+
+def batched_track_from_blobs(states, blobs, blob_valid, dts, Ps, K, dist,
+                             to_world_matrices, Fs, **kw):
+    """Multi-rig serving: R independent rigs in one call, every argument
+    with a leading rig axis (states stacked (R, ...), blobs (R, C, K, 2),
+    per-rig calibrations).  Each rig runs ``track_from_blobs`` in turn —
+    the bank kernel launches once per rig on the card.  All rigs share the
+    static config (``kw``).  Returns (states (R, ...), FrameOutputs with
+    (R, ...) leaves)."""
+    new, outs = [], []
+    for r in range(blobs.shape[0]):
+        st, out = track_from_blobs(
+            tree.tree_map(lambda x: x[r], states), blobs[r], blob_valid[r],
+            dts[r], Ps[r], K[r], dist[r], to_world_matrices[r],
+            None if Fs is None else Fs[r], **kw)
+        new.append(st)
+        outs.append(out)
+    return tree.stack(new), tree.stack(outs)

@@ -4,7 +4,8 @@ Counterpart of ``low_cost_mocap_tpu/ops/camera.py``, with the same
 operation order.  Blob centroids are undistorted analytically (about ten
 flops a point) instead of dewarping whole frames; cameras stack along a
 leading axis so one call handles the rig, and any further leading axes
-(a batch of frames) broadcast.
+(a batch of frames) broadcast.  ``build_undistort_map`` and
+``undistort_image`` remap whole frames for display.
 """
 
 from __future__ import annotations
@@ -78,3 +79,34 @@ def projection_matrix(K, R, t):
     """P = K [R | t]: (..., 3, 4) from (..., 3, 3), (..., 3, 3), (..., 3)."""
     Rt = torch.cat([R, t[..., :, None]], dim=-1)
     return K @ Rt
+
+
+def build_undistort_map(K, dist, height: int, width: int):
+    """(H, W, 2) float32 source pixel (x, y) of every destination pixel of
+    the undistorted frame, computed once; ``undistort_image`` samples it.
+    The display path's full-frame remap (tracking undistorts centroids)."""
+    ys = torch.arange(height, dtype=torch.float32, device=K.device)
+    xs = torch.arange(width, dtype=torch.float32, device=K.device)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")               # (H, W)
+    xy = pixels_to_normalized(torch.stack([gx, gy], dim=-1), K)
+    return normalized_to_pixels(distort_normalized(xy, dist), K)
+
+
+def undistort_image(img, smap):
+    """Bilinear resample of ``img`` (H, W) or (H, W, C) at the source map
+    ``smap`` (H, W, 2), clamped to the frame; float32 out."""
+    H, W = img.shape[0], img.shape[1]
+    x = torch.clamp(smap[..., 0], 0.0, W - 1.0)
+    y = torch.clamp(smap[..., 1], 0.0, H - 1.0)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    x1 = torch.clamp_max(x0 + 1, W - 1)
+    y1 = torch.clamp_max(y0 + 1, H - 1)
+    wx = x - x0.to(x.dtype)
+    wy = y - y0.to(y.dtype)
+    if img.dim() == 3:
+        wx, wy = wx[..., None], wy[..., None]
+    f = img.to(torch.float32)
+    top = f[y0, x0] * (1 - wx) + f[y0, x1] * wx
+    bot = f[y1, x0] * (1 - wx) + f[y1, x1] * wx
+    return top * (1 - wy) + bot * wy

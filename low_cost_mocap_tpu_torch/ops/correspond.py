@@ -1,23 +1,27 @@
 """Cross-view correspondence: epipolar gating + hypothesis scoring.
 
-Counterpart of ``low_cost_mocap_tpu/ops/correspond.py`` in its exact mode
-(the mode the JAX package runs for up to five cameras).  Per root point and
-later camera the ``max_candidates`` nearest gated candidates plus a
-"missing" option are enumerated; every (root, hypothesis) triangulates in
-one batched DLT, and the minimum selection score wins per root.  A camera-0
-root whose winner duplicates a better camera-0 winner re-selects its best
-qualifying non-duplicate hypothesis, then a ghost dedupe pass drops points
-that a better point already explains.
+Counterpart of ``low_cost_mocap_tpu/ops/correspond.py`` in its three modes.
+Roots are camera 0's points and every later point that is no earlier
+root's nearest gated candidate.  Exact mode (up to five cameras) enumerates,
+per root and later camera, the ``max_candidates`` nearest gated candidates
+plus a "missing" option, triangulates every (root, hypothesis) in one
+batched DLT and keeps the minimum selection score per root; a camera-0 root
+whose winner duplicates a better camera-0 winner re-selects its best
+qualifying non-duplicate hypothesis.  Beam mode grows those hypotheses one
+camera at a time and keeps the best ``beam_width``.  Assoc mode (large
+rigs) seeds each root from its best gated pair and converges by reproject,
+associate, re-triangulate.  A ghost dedupe pass then drops points that a
+better point already explains.
 
 Every function here takes an explicit leading batch axis of frames
 (``(B, C, K, ...)``), so batched serving and the per-frame step (B = 1) run
 the same code.
 
 Ties: ``jax.lax.top_k`` returns the lowest index first among equal values,
-and most gated distances are +inf, so ties are the common case.
-``torch.topk`` promises no order among ties, so candidates come from a
-stable ascending sort instead.  ``torch.argmin``/``argmax`` return the first
-extremum, as JAX's do.
+and most gated distances and dead beam partials are +inf, so ties are the
+common case.  ``torch.topk`` promises no order among ties, so candidates
+and beam survivors come from stable ascending sorts instead.
+``torch.argmin``/``argmax`` return the first extremum, as JAX's do.
 """
 
 from __future__ import annotations
@@ -46,13 +50,16 @@ def _epipolar_distances(pts, valid, gate_px, Fs):
     """d[z, a, k, b, j] = distance of point (b, j) to the epiline of point
     (a, k) in frame z.  Returns (d, gated), both (B, C, K, C, K)."""
     C = pts.shape[1]
-    ph = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)   # (B,C,K,3)
-    lines = torch.einsum("abij,zakj->zakbi", Fs, ph)               # (B,C,K,C,3)
+    # the products written out (no matmul, whose summation order would
+    # change with the batch size on the card)
+    p = pts[:, :, :, None, None, :]                                # (B,C,K,1,1,2)
+    F = Fs[None, :, None]                                          # (1,C,1,C,3,3)
+    lines = F[..., 0] * p[..., 0] + F[..., 1] * p[..., 1] + F[..., 2]
     n = torch.sqrt(lines[..., 0] ** 2 + lines[..., 1] ** 2)
-    lines = lines / torch.clamp_min(n[..., None], 1e-12)
-    d = torch.abs(
-        torch.einsum("zakbi,zbji->zakbj", lines[..., :2], pts)
-        + lines[..., 2:3])                                         # (B,C,K,C,K)
+    lines = lines / torch.clamp_min(n[..., None], 1e-12)           # (B,C,K,C,3)
+    q = pts[:, None, None]                                         # (B,1,1,C,K,2)
+    d = torch.abs(lines[..., 0:1] * q[..., 0] + lines[..., 1:2] * q[..., 1]
+                  + lines[..., 2:3])                               # (B,C,K,C,K)
     # F[a, a] is built from duplicated projection rows, so the same-camera
     # block is masked explicitly
     same_cam = torch.eye(C, dtype=torch.bool, device=pts.device)[:, None, :, None]
@@ -136,8 +143,10 @@ def _take(x, idx):
 
 def match_points(pts, valid, Ps, gate_px: float = 5.0,
                  max_candidates: int = 2, dedupe_eps: float = 0.02,
-                 mode: str = "auto", Fs=None, with_obs: bool = False):
-    """Full-frame correspondence + triangulation, exact mode.
+                 mode: str = "auto", beam_width: int = 0,
+                 miss_penalty_px: float = -1.0, Fs=None,
+                 with_obs: bool = False):
+    """Full-frame correspondence + triangulation.
 
     pts: (C, K, 2) or (B, C, K, 2) undistorted blob centroids; valid: the
     matching (C, K) or (B, C, K); Ps: (C, 3, 4).  Returns a dict with
@@ -145,36 +154,72 @@ def match_points(pts, valid, Ps, gate_px: float = 5.0,
     (..., C*K): one output slot per potential root.  ``with_obs`` adds the
     winners' per-camera observations, ``obs`` (..., C*K, C, 2) and
     ``obs_mask`` (..., C*K, C), zero where masked: the correspondence-
-    resolved measurements live recalibration refines from.  ``mode``
-    "auto" and "exact" run the exact matcher; "assoc" and "beam" are not
-    ported yet.
+    resolved measurements live recalibration refines from.
+
+    ``mode``: "exact" enumerates every candidate combination; "assoc" seeds
+    each root from its best gated pair over all cameras and converges by
+    two reproject-associate-retriangulate rounds (the large-rig path);
+    "beam" grows hypotheses camera by camera, keeping the ``beam_width``
+    (default ``(max_candidates + 1)^2``) lowest-scoring partial assemblies;
+    "auto" is exact for up to five cameras, else assoc.  Selection scores
+    a missing later view as a ``miss_penalty_px`` residual (default, < 0:
+    the gate); 0 is the reference's bare mean-error rule.
     """
-    if mode not in ("auto", "exact"):
-        raise NotImplementedError(
-            f"match_points mode {mode!r} is not ported yet (exact only)")
+    if mode == "auto":
+        mode = "exact" if pts.shape[-3] <= 5 else "assoc"
+    if mode not in ("exact", "assoc", "beam"):
+        raise ValueError(f"mode must be auto/exact/assoc/beam: {mode!r}")
     squeeze = pts.dim() == 3
     if squeeze:
         pts, valid = pts[None], valid[None]
-    Bz, C, K, _ = pts.shape
-    if C > 5 and mode == "auto":
-        raise NotImplementedError(
-            "more than 5 cameras needs assoc mode, which is not ported yet")
     if Fs is None:
         Fs = _pairwise_fundamentals(Ps)
-    dev, f32 = pts.device, pts.dtype
     n_opt = max_candidates + 1
-    tau2 = gate_px * gate_px       # miss penalty: the epipolar gate
+    if beam_width <= 0:
+        beam_width = n_opt * n_opt
+    if miss_penalty_px < 0:
+        miss_penalty_px = gate_px
+    tau2 = miss_penalty_px * miss_penalty_px
 
     d, gated = _epipolar_distances(pts, valid, gate_px, Fs)
     root_mask = _compute_roots(d, gated, valid)
+    if mode == "assoc":
+        out = _match_assoc(pts, valid, Ps, d, gated, root_mask, gate_px,
+                           dedupe_eps, with_obs)
+    else:
+        # the max_candidates nearest gated candidates per (root, later
+        # camera); a stable sort keeps the lowest index first among ties,
+        # as top_k does
+        d_sorted, order = torch.sort(torch.where(gated, d, _INF), dim=-1,
+                                     stable=True)
+        cand_idx = order[..., :max_candidates]                  # (B,C,K,C,R)
+        cand_valid = torch.isfinite(d_sorted[..., :max_candidates])
+        args = (pts, Ps, root_mask, cand_idx, cand_valid, gate_px,
+                max_candidates, tau2, dedupe_eps, with_obs)
+        out = (_match_exact(*args) if mode == "exact"
+               else _match_beam(*args, beam_width))
+    if squeeze:
+        out = {k: v[0] for k, v in out.items()}
+    return out
 
-    # the max_candidates nearest gated candidates per (root, later camera);
-    # a stable sort keeps the lowest index first among ties, as top_k does
-    d_masked = torch.where(gated, d, _INF)                      # (B,C,K,C,K)
-    d_sorted, order = torch.sort(d_masked, dim=-1, stable=True)
-    cand_idx = order[..., :max_candidates]                      # (B,C,K,C,R)
-    cand_valid = torch.isfinite(d_sorted[..., :max_candidates])
 
+def _selection_score(err, n_vis, n_later, tau2):
+    """Raw mean squared error with every missing later view counted as a
+    ``tau2`` residual."""
+    n_miss = torch.clamp_min(n_later - (n_vis - 1.0), 0.0)
+    return (err * n_vis + n_miss * tau2) / torch.clamp_min(n_vis + n_miss,
+                                                           1.0)
+
+
+def _match_exact(pts, Ps, root_mask, cand_idx, cand_valid, gate_px,
+                 max_candidates, tau2, dedupe_eps, with_obs):
+    """Every (root, hypothesis) triangulated in one batched DLT; the
+    minimum selection score wins per root.  A camera-0 root whose winner
+    duplicates a better camera-0 winner re-selects its best qualifying
+    non-duplicate hypothesis before the ghost dedupe."""
+    Bz, C, K, _ = pts.shape
+    dev, f32 = pts.device, pts.dtype
+    n_opt = max_candidates + 1
     onehot_np, use_np, self_np, rc_oh_np, rc_of_h = _hypothesis_tables(C, n_opt)
     onehot = torch.from_numpy(onehot_np).to(dev)                # (H, C, C, R)
     self_tab = torch.from_numpy(self_np).to(dev)                # (H, C)
@@ -208,10 +253,8 @@ def match_points(pts, valid, Ps, gate_px: float = 5.0,
     n_vis = msk.sum(dim=-1).to(f32)                             # (B, K, H)
     n_later = torch.from_numpy(
         (C - 1 - rc_of_h).astype(np.float32)).to(dev)[None, None]
-    n_miss = torch.clamp_min(n_later - (n_vis - 1.0), 0.0)
-    score = (err * n_vis + n_miss * tau2) / torch.clamp_min(
-        n_vis + n_miss, 1.0)
-    score = torch.where(ok, score, _INF)
+    score = torch.where(ok, _selection_score(err, n_vis, n_later, tau2),
+                        _INF)
 
     # per-root-camera winner over each root camera's contiguous slice
     out_pts, out_err, out_obs, out_om = [], [], [], []
@@ -285,10 +328,133 @@ def match_points(pts, valid, Ps, gate_px: float = 5.0,
                 torch.cat([a_om, torch.zeros_like(obs_mask[:, K:])], 1),
                 obs_mask)
 
-    out = _finalize(object_points, errors, ok, dedupe_eps, obs, obs_mask)
-    if squeeze:
-        out = {k: v[0] for k, v in out.items()}
-    return out
+    return _finalize(object_points, errors, ok, dedupe_eps, obs, obs_mask)
+
+
+def _match_beam(pts, Ps, root_mask, cand_idx, cand_valid, gate_px,
+                max_candidates, tau2, dedupe_eps, with_obs, beam_width):
+    """Per root, hypotheses grow one later camera at a time (each of the
+    ``max_candidates`` candidates or "missing"), and the ``beam_width``
+    lowest-scoring partial assemblies survive each camera.  Every root of
+    one root camera, in every frame, advances together."""
+    Bz, C, K, _ = pts.shape
+    dev, f32 = pts.device, pts.dtype
+    n_opt = max_candidates + 1
+    Bw = beam_width
+    choice = torch.arange(n_opt, device=dev)
+    is_miss = choice == n_opt - 1                               # (n_opt,)
+    rank = torch.clamp_max(choice, max_candidates - 1)
+    zi = torch.arange(Bz, device=dev)[:, None, None]
+    ki = torch.arange(K, device=dev)[None, :, None]
+    out_pts, out_err, out_ok, out_obs, out_om = [], [], [], [], []
+    for rc in range(C):
+        n_later = float(C - rc - 1)
+        sel = torch.zeros(Bz, K, Bw, C, 2, dtype=f32, device=dev)
+        sel[:, :, :, rc] = pts[:, rc, :, None, :]
+        msk = torch.zeros(Bz, K, Bw, C, dtype=torch.bool, device=dev)
+        msk[:, :, :, rc] = True
+        ok = torch.zeros(Bz, K, Bw, dtype=torch.bool, device=dev)
+        ok[:, :, 0] = True                                      # one live seed
+        for b in range(rc + 1, C):
+            j = cand_idx[:, rc, :, b][:, :, rank]               # (B, K, n_opt)
+            cv = cand_valid[:, rc, :, b][:, :, rank]
+            sel_e = sel[:, :, :, None].expand(Bz, K, Bw, n_opt, C, 2).clone()
+            sel_e[:, :, :, :, b] = pts[:, b][zi, j][:, :, None]
+            msk_e = msk[:, :, :, None].expand(Bz, K, Bw, n_opt, C).clone()
+            msk_e[:, :, :, :, b] = ~is_miss
+            ok_e = ok[..., None] & (is_miss | cv)[:, :, None, :]
+            sel_f = sel_e.reshape(Bz, K, Bw * n_opt, C, 2)
+            msk_f = msk_e.reshape(Bz, K, Bw * n_opt, C)
+            ok_f = ok_e.reshape(Bz, K, Bw * n_opt)
+            X, _ = tri.triangulate_points(sel_f.reshape(-1, C, 2), Ps,
+                                          msk_f.reshape(-1, C))
+            err = tri.reprojection_errors(sel_f.reshape(-1, C, 2), X, Ps,
+                                          msk_f.reshape(-1, C))
+            err = err.reshape(ok_f.shape)
+            n_vis = msk_f.sum(dim=-1)
+            # partials with < 2 views rank at zero raw error
+            err = torch.where(n_vis >= 2, err, 0.0)
+            score = torch.where(
+                ok_f, _selection_score(err, n_vis.to(f32), n_later, tau2),
+                _INF)
+            # top_k(-score)'s order: ascending, lowest index first in ties
+            keep = torch.sort(score, dim=-1, stable=True)[1][..., :Bw]
+            sel = sel_f[zi, ki, keep]
+            msk = msk_f[zi, ki, keep]
+            ok = ok_f[zi, ki, keep]
+        X, _ = tri.triangulate_points(sel.reshape(-1, C, 2), Ps,
+                                      msk.reshape(-1, C))
+        err = tri.reprojection_errors(sel.reshape(-1, C, 2), X, Ps,
+                                      msk.reshape(-1, C)).reshape(ok.shape)
+        err = torch.where(ok, err, _INF)
+        score = torch.where(
+            ok, _selection_score(err, msk.sum(dim=-1).to(f32), n_later,
+                                 tau2), _INF)
+        best = torch.argmin(score, dim=-1)                      # (B, K)
+        err_b = _take(err, best)
+        out_pts.append(_take(X.reshape(Bz, K, Bw, 3), best))
+        out_err.append(err_b)
+        out_ok.append(torch.isfinite(err_b) & root_mask[:, rc])
+        out_obs.append(_take(sel, best))
+        out_om.append(_take(msk, best))
+    ok = torch.cat(out_ok, dim=1)
+    errors = torch.where(ok, torch.cat(out_err, dim=1), _INF)
+    return _finalize(torch.cat(out_pts, dim=1), errors, ok, dedupe_eps,
+                     torch.cat(out_obs, dim=1) if with_obs else None,
+                     torch.cat(out_om, dim=1) if with_obs else None)
+
+
+def _match_assoc(pts, valid, Ps, d, gated, root_mask, gate_px, dedupe_eps,
+                 with_obs):
+    """Constant-depth large-rig matcher.  Each root seeds a 2-view DLT with
+    its nearest gated candidate over every other camera (the first flat
+    (camera, blob) index among ties), then two rounds reproject every
+    point, take each camera's nearest valid blob within the gate and
+    re-triangulate.  Association may use earlier cameras too; coincident
+    duplicates die in the dedupe pass."""
+    Bz, C, K, _ = pts.shape
+    N = C * K
+    dev = pts.device
+    cams = torch.arange(C, device=dev)
+    zi = torch.arange(Bz, device=dev)
+
+    # seed pair: the best gated candidate over all (camera, blob)
+    d_flat = torch.where(gated, d, _INF).reshape(Bz, C, K, N)
+    best = torch.argmin(d_flat, dim=-1)                         # (B, C, K)
+    has_seed = torch.isfinite(torch.amin(d_flat, dim=-1))
+    b_star = best // K
+    seed_obs = pts.reshape(Bz, N, 2)[zi[:, None, None], best]   # (B, C, K, 2)
+
+    own_oh = cams[:, None, None] == cams[None, None, :]         # (C, 1, C)
+    seed_oh = b_star[..., None] == cams                         # (B, C, K, C)
+    sel0 = torch.where(own_oh[..., None], pts[:, :, :, None, :], 0.0)
+    sel0 = torch.where(seed_oh[..., None], seed_obs[:, :, :, None, :], sel0)
+    msk0 = (own_oh | (seed_oh & has_seed[..., None])).reshape(Bz * N, C)
+    own_row = own_oh.expand(C, K, C).reshape(N, C)
+    own_pts = pts[:, :, :, None, :].expand(Bz, C, K, C, 2).reshape(Bz, N, C, 2)
+    X, _ = tri.triangulate_points(sel0.reshape(Bz * N, C, 2), Ps, msk0)
+
+    for _ in range(2):
+        uv = tri.reproject(X, Ps).reshape(Bz, N, C, 1, 2)
+        diff = uv - pts[:, None]                                # (B,N,C,K,2)
+        dist2 = (diff * diff).sum(dim=-1)
+        dist2 = torch.where(valid[:, None], dist2, _INF)
+        nd2 = torch.amin(dist2, dim=-1)                         # (B, N, C)
+        nearest = torch.argmin(dist2, dim=-1)
+        # the blob lookup is a gather (JAX contracts a one-hot: exact too)
+        obs = pts[zi[:, None, None], cams[None, None, :], nearest]
+        sel = torch.where(own_row[..., None], own_pts, obs)     # (B, N, C, 2)
+        msk = (nd2 < gate_px * gate_px) | own_row
+        X, _ = tri.triangulate_points(sel.reshape(Bz * N, C, 2), Ps,
+                                      msk.reshape(Bz * N, C))
+
+    err = tri.reprojection_errors(sel.reshape(Bz * N, C, 2), X, Ps,
+                                  msk.reshape(Bz * N, C)).reshape(Bz, N)
+    ok = (torch.isfinite(err) & root_mask.reshape(Bz, N)
+          & has_seed.reshape(Bz, N))
+    err = torch.where(ok, err, _INF)
+    return _finalize(X.reshape(Bz, N, 3), err, ok, dedupe_eps,
+                     *((sel, msk) if with_obs else (None, None)))
 
 
 def _finalize(object_points, errors, ok, dedupe_eps, obs=None,

@@ -157,13 +157,15 @@ def _min_label_step(labels, big: int):
 
 
 def find_blobs_multi(frames, threshold: float, max_blobs: int,
-                     cc_iters: int = 24):
+                     cc_iters: int = 24, integer_centroids: bool = False):
     """Detect up to ``max_blobs`` blobs per camera.
 
     frames: (C, H, W) float32.  Returns (centroids (C, K, 2) xy pixels,
     valid (C, K) bool, sizes (C, K) f32), components in raster order of
     their lowest pixel index.  Moments are integer sums, which equal the
     reference's float32 sums while they stay below 2^24.
+    ``integer_centroids=True`` floors the centroids (the reference's
+    ``int()`` cast).
     """
     C, H, W = frames.shape
     dev = frames.device
@@ -197,4 +199,18 @@ def find_blobs_multi(frames, threshold: float, max_blobs: int,
                         sy.to(torch.float32) / m00_safe], dim=-1)
     valid = slot_valid & (m00 > 0)
     cent = torch.where(valid[..., None], cent, 0.0)
+    if integer_centroids:
+        cent = torch.floor(cent)
     return cent, valid, m00_f * valid
+
+
+def find_blobs(frame, threshold: float, max_blobs: int, cc_iters: int = 24,
+               integer_centroids: bool = False):
+    """One (H, W) frame: (centroids (K, 2), valid (K,), sizes (K,)).  The
+    detector of ``ops/detect_cuda.find_blobs`` (the ``detect_blobs``
+    kernel on the card) at one camera."""
+    from low_cost_mocap_tpu_torch.ops import detect_cuda
+
+    return tuple(x[0] for x in detect_cuda.find_blobs(
+        frame[None].contiguous(), threshold, max_blobs, cc_iters,
+        integer_centroids=integer_centroids))

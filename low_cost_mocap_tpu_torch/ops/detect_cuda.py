@@ -45,13 +45,16 @@ def _work_ints(C: int, H: int, W: int, cc_iters: int) -> int:
     return _lib().lcm_detect_work_ints(C, H, W, cc_iters)
 
 
-def find_blobs(frames, threshold: float, max_blobs: int, cc_iters: int = 24):
+def find_blobs(frames, threshold: float, max_blobs: int, cc_iters: int = 24,
+               integer_centroids: bool = False):
     """(C, H, W) float32 frames -> (centroids (C, K, 2), valid (C, K) bool,
     sizes (C, K) f32); the contract of ``detect.find_blobs_multi``.  On the
-    card the three outputs are views of one allocation."""
+    card the three outputs are views of one allocation, except floored
+    centroids (``integer_centroids``), a cast of the kernel's."""
     global launches
     if not native.on_card(frames):
-        return detect.find_blobs_multi(frames, threshold, max_blobs, cc_iters)
+        return detect.find_blobs_multi(frames, threshold, max_blobs, cc_iters,
+                                       integer_centroids)
     if (frames.dtype != torch.float32 or frames.dim() != 3
             or not frames.is_contiguous()):
         raise ValueError("frames must be contiguous (C, H, W) float32")
@@ -72,6 +75,7 @@ def find_blobs(frames, threshold: float, max_blobs: int, cc_iters: int = 24):
         torch.cuda.current_stream(dev).cuda_stream), NAME)
     launches += 1
     floats = out[:C * K * 12].view(torch.float32)
-    return (floats[:C * K * 2].view(C, K, 2),
+    cent = floats[:C * K * 2].view(C, K, 2)
+    return (torch.floor(cent) if integer_centroids else cent,
             out[C * K * 12:].view(torch.bool).view(C, K),
             floats[C * K * 2:].view(C, K))

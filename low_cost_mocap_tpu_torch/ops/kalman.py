@@ -1,13 +1,19 @@
 """Batched constant-acceleration Kalman bank + low-pass post-filtering.
 
-Counterpart of ``low_cost_mocap_tpu/ops/kalman.py:update`` on the serving
-options (``report`` "pre"/"post", no advance on a miss, no covariance
-output).  The O objects are one batch axis (the JAX package vmaps them).
+Counterpart of ``low_cost_mocap_tpu/ops/kalman.py``: ``update`` (the O
+objects are one batch axis; the JAX package vmaps them), the offline
+filter ``track_sequence`` and the fixed-interval Rauch-Tung-Striebel
+smoothers ``rts_smooth`` (a backward loop) and ``rts_smooth_assoc`` (the
+same recursion as affine maps composed by a log-depth scan), with
+``smooth_sequence`` running a forward pass and the smoother.
 
-This chain is the plain PyTorch version of the bank kernel
-(``ops/kalman_cuda.py``, ``csrc/kalman_bank.cu``): the kernel performs the
-same float32 operations in the same order, so on the card the two agree
-bitwise.  The squared association distance is written out as
+``update`` on the serving options (``report`` "pre"/"post", no advance on
+a miss, no covariance output) is the plain PyTorch version of the bank
+kernel (``ops/kalman_cuda.py``, ``csrc/kalman_bank.cu``): the kernel
+performs the same float32 operations in the same order, so on the card the
+two agree bitwise.  The smoother's forward options (``advance_on_miss``,
+``return_cov``) run this chain only, as the JAX package's kernel has
+neither.  The squared association distance is written out as
 ``(dx*dx + dy*dy) + dz*dz`` for that reason, instead of a reduction whose
 order the library chooses.
 
@@ -17,7 +23,8 @@ I; lazy init from the lowest-slot candidate; nearest-candidate
 association; velocity measured over the time since the object's last
 detection and re-seeded after ``gap_reset_s``; six sequential scalar
 updates; a long-gap state re-seed; order-5 Butterworth on heading and
-velocity; state committed only on frames with a detection.
+velocity; state committed only on frames with a detection (or, with
+``advance_on_miss``, the prediction committed through a gap).
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 
 from low_cost_mocap_tpu_torch.device import resolve_device
 from low_cost_mocap_tpu_torch.ops import lowpass
+from low_cost_mocap_tpu_torch.utils import tree
 
 
 class KalmanState(NamedTuple):
@@ -76,12 +84,18 @@ def _f_rows(m, dt, hdt2):
 def update(state: KalmanState, cand_pos, cand_heading, cand_index,
            cand_valid, dt, *, process_noise: float = 1e-2,
            meas_noise: float = 1.0, gap_reset_s: float = 0.5,
-           report: str = "pre"):
+           report: str = "pre", advance_on_miss: bool = False,
+           return_cov: bool = False):
     """One tracking step for the whole bank.
 
     cand_*: (M,) candidates from ``ops.rigid.locate_objects`` (pos (M, 3),
     heading (M,), index (M,) int, valid (M,) bool); dt: float32 0-d tensor
     or float.  Returns (new_state, TrackedObjects).
+
+    ``advance_on_miss``: an initialised object without a detection commits
+    its prediction, so every frame carries one predict(dt) step (the
+    smoother's precondition).  ``return_cov``: return (new_state,
+    (TrackedObjects, committed x (O, 9), committed P (O, 9, 9))).
     """
     if report not in ("pre", "post"):
         raise ValueError(f"report must be 'pre' or 'post', got {report!r}")
@@ -155,9 +169,16 @@ def update(state: KalmanState, cand_pos, cand_heading, cand_index,
         return torch.where(any_mine.reshape((O,) + (1,) * (new.dim() - 1)),
                            new, old)
 
+    if advance_on_miss:
+        x_new = torch.where(any_mine[:, None], x_post,
+                            torch.where(inited[:, None], x_pre, x))
+        P_new = torch.where(any_mine[:, None, None], P_post,
+                            torch.where(inited[:, None, None], P_pre, P))
+    else:
+        x_new, P_new = upd(x_post, x), upd(P_post, P)
     new_state = KalmanState(
-        x=upd(x_post, x),
-        P=upd(P_post, P),
+        x=x_new,
+        P=P_new,
         initialized=inited,
         prev_pos=upd(new_pos, prev_pos),
         lpf_heading=upd(lh2, lh),
@@ -170,6 +191,8 @@ def update(state: KalmanState, cand_pos, cand_heading, cand_index,
         heading=torch.where(any_mine, heading_f, 0.0),
         valid=any_mine,
     )
+    if return_cov:
+        return new_state, (tracked, new_state.x, new_state.P)
     return new_state, tracked
 
 
@@ -183,4 +206,116 @@ def update_scan(state: KalmanState, cand_pos_seq, cand_heading_seq,
                            cand_index_seq[t], cand_valid_seq[t], dts[t],
                            **kw)
         outs.append(tr)
-    return state, TrackedObjects(*(torch.stack(leaf) for leaf in zip(*outs)))
+    return state, tree.stack(outs)
+
+
+def track_sequence(state: KalmanState, cand_pos_seq, cand_heading_seq,
+                   cand_index_seq, cand_valid_seq, dts, **kw):
+    """Offline filtering of a recorded sequence: ``update`` over (T, M,
+    ...) candidates and (T,) dts with ``update``'s options; returns (final
+    state, the per-step outputs stacked along T)."""
+    return update_scan(state, cand_pos_seq, cand_heading_seq, cand_index_seq,
+                       cand_valid_seq, dts, **kw)
+
+
+def _transition(dt):
+    """The CA model's F(dt) as (..., 9, 9) for dt of shape (...)."""
+    dt = torch.as_tensor(dt)
+    eye3 = torch.eye(3, dtype=dt.dtype, device=dt.device)
+    F = torch.eye(9, dtype=dt.dtype, device=dt.device).repeat(
+        *dt.shape, 1, 1)
+    d = dt[..., None, None]
+    F[..., 0:3, 3:6] = d * eye3
+    F[..., 3:6, 6:9] = d * eye3
+    F[..., 0:3, 6:9] = 0.5 * d * d * eye3
+    return F
+
+
+def rts_smooth(xs, Ps, dts, *, process_noise: float = 1e-2):
+    """Fixed-interval Rauch-Tung-Striebel smoother over filtered states.
+
+    xs: (T, O, 9) filtered means, Ps: (T, O, 9, 9) filtered covariances,
+    from a forward pass that made one predict(dts[k]) a frame
+    (``advance_on_miss=True``, ``return_cov=True``); dts[k] is the interval
+    between frames k-1 and k.  Returns (xs_smooth, Ps_smooth), the last
+    frame the filtered one.  Per k = T-2 .. 0, batched over the objects:
+    P_pred = F P_k F' + Q, C = P_k F' P_pred^-1, x_s[k] = x[k] + C
+    (x_s[k+1] - F x[k]), P_s[k] = P_k + C (P_s[k+1] - P_pred) C'.
+    """
+    Q = torch.eye(9, dtype=xs.dtype, device=xs.device) * process_noise
+    F = _transition(dts[1:])                                  # (T-1, 9, 9)
+    x_s, P_s = xs[-1], Ps[-1]
+    out_x, out_P = [x_s], [P_s]
+    for k in range(xs.shape[0] - 2, -1, -1):
+        x_k, P_k, Fk = xs[k], Ps[k], F[k]
+        x_pred = torch.einsum("ij,oj->oi", Fk, x_k)
+        P_pred = torch.einsum("ij,ojk,lk->oil", Fk, P_k, Fk) + Q
+        C = torch.einsum("oij,kj,okl->oil", P_k, Fk,
+                         torch.linalg.inv(P_pred))
+        x_s = x_k + torch.einsum("oij,oj->oi", C, x_s - x_pred)
+        P_s = P_k + torch.einsum("oij,ojk,olk->oil", C, P_s - P_pred, C)
+        out_x.append(x_s)
+        out_P.append(P_s)
+    return torch.stack(out_x[::-1]), torch.stack(out_P[::-1])
+
+
+def rts_smooth_assoc(xs, Ps, dts, *, process_noise: float = 1e-2):
+    """``rts_smooth`` in log depth (Sarkka and Garcia-Fernandez, IEEE TAC
+    2021).  The backward recursion applies per-step affine maps
+    x_s[k] = E_k x_s[k+1] + g_k (noise L_k), with E_k = C_k,
+    g_k = x[k] - C_k F_k x[k], L_k = P_k - C_k P_pred C_k'; composition
+    is associative, so every suffix composition a_k o ... o a_{T-2} comes
+    from ceil(log2 T) rounds of batched 9x9 products (a Hillis-Steele
+    scan).  Equal to ``rts_smooth`` to float precision."""
+    Q = torch.eye(9, dtype=xs.dtype, device=xs.device) * process_noise
+    F = _transition(dts[1:])                                  # (T-1, 9, 9)
+    x_pred = torch.einsum("tij,toj->toi", F, xs[:-1])
+    P_pred = torch.einsum("tij,tojk,tlk->toil", F, Ps[:-1], F) + Q
+    C = torch.einsum("toij,tkj,tokl->toil", Ps[:-1], F,
+                     torch.linalg.inv(P_pred))
+    E = C                                                     # (T-1, O, 9, 9)
+    g = xs[:-1] - torch.einsum("toij,toj->toi", C, x_pred)
+    L = Ps[:-1] - torch.einsum("toij,tojk,tolk->toil", C, P_pred, C)
+    n, step = E.shape[0], 1
+    while step < n:
+        # element t composes with the suffix starting at t + step: the
+        # earlier map outermost, (a_t o a_later)(x) = a_t(a_later(x))
+        Ea, ga, La = E[step:], g[step:], L[step:]
+        Eb, gb, Lb = E[:-step], g[:-step], L[:-step]
+        E = torch.cat([torch.einsum("toij,tojk->toik", Eb, Ea), E[-step:]])
+        g = torch.cat([torch.einsum("toij,toj->toi", Eb, ga) + gb,
+                       g[-step:]])
+        L = torch.cat([torch.einsum("toij,tojk,tolk->toil", Eb, La, Eb) + Lb,
+                       L[-step:]])
+        step *= 2
+    xs_s = torch.einsum("toij,oj->toi", E, xs[-1]) + g
+    Ps_s = torch.einsum("toij,ojk,tolk->toil", E, Ps[-1], E) + L
+    return (torch.cat([xs_s, xs[-1:]]), torch.cat([Ps_s, Ps[-1:]]))
+
+
+def smooth_sequence(state: KalmanState, cand_pos_seq, cand_heading_seq,
+                    cand_index_seq, cand_valid_seq, dts, *,
+                    process_noise: float = 1e-2, **kw):
+    """Forward filter (``advance_on_miss``, ``report="post"``, covariances
+    kept) and the RTS backward pass over a recorded sequence.  Returns
+    (TrackedObjects (T, O, ...) of smoothed positions and velocities, the
+    forward pass's filtered headings, and ``valid`` = the track is
+    initialised — gap frames carry interpolated states; xs_smooth
+    (T, O, 9))."""
+    outs, inited = [], []
+    for t in range(cand_pos_seq.shape[0]):
+        state, out = update(state, cand_pos_seq[t], cand_heading_seq[t],
+                            cand_index_seq[t], cand_valid_seq[t], dts[t],
+                            process_noise=process_noise, report="post",
+                            advance_on_miss=True, return_cov=True, **kw)
+        outs.append(out)
+        inited.append(state.initialized)
+    tracked, xs, Ps = tree.stack(outs)
+    inited = torch.stack(inited)
+    xs_s, _ = rts_smooth(xs, Ps, dts, process_noise=process_noise)
+    smoothed = TrackedObjects(
+        pos=torch.where(inited[..., None], xs_s[..., :3], 0.0),
+        vel=torch.where(inited[..., None], xs_s[..., 3:6], 0.0),
+        heading=tracked.heading,
+        valid=inited)
+    return smoothed, xs_s

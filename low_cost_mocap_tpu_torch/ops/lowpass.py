@@ -3,7 +3,7 @@
 Counterpart of ``low_cost_mocap_tpu/ops/lowpass.py``: the 5-element
 direct-form-II-transposed state per channel advances in O(order) per
 sample — with zero initial state exactly ``scipy.signal.lfilter`` over the
-whole history.
+whole history.  ``lpf_scan`` filters a recorded sequence.
 """
 
 from __future__ import annotations
@@ -48,3 +48,19 @@ def lpf_step(state, x, b, a):
     ]
     new.append(b[order] * x - a[order] * y)
     return torch.stack(new, dim=-1), y
+
+
+def lpf_scan(x_seq, b, a, state=None):
+    """Offline: filter a whole (T, ...) sequence, one ``lpf_step`` per
+    sample from ``state`` (zero by default); returns the (T, ...) output.
+    ``b``, ``a``: numpy arrays or tensors of the coefficients."""
+    b = torch.as_tensor(b, dtype=x_seq.dtype, device=x_seq.device)
+    a = torch.as_tensor(a, dtype=x_seq.dtype, device=x_seq.device)
+    if state is None:
+        state = init_state(x_seq.shape[1:], order=len(b) - 1,
+                           dtype=x_seq.dtype, device=x_seq.device)
+    ys = []
+    for x in x_seq:
+        state, y = lpf_step(state, x, b, a)
+        ys.append(y)
+    return torch.stack(ys)

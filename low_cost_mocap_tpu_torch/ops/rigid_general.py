@@ -357,14 +357,15 @@ def locate_bodies(points, valid, template: BodyTemplate, *,
                   return_live: bool = False, seed_R=None, seed_t=None,
                   seed_ok=None, seed_weight: float = 1e-4):
     """Greedily extract up to ``max_instances`` bodies of one template from
-    (N, 3) points; each accepted fit consumes its matched points.
+    (N, 3) points, or from each of L frames' (L, N, 3); each accepted fit
+    consumes its matched points.
 
-    ``return_live=True`` also returns the (N,) mask of points no accepted
-    fit consumed (the multi-template path chains templates over it).
-    ``seed_*``: track-prediction hypotheses handed to every instance's
-    ``fit_body``.
+    ``return_live=True`` also returns the (N,) (or (L, N)) mask of points
+    no accepted fit consumed (the multi-template path chains templates
+    over it).  ``seed_*``: track-prediction hypotheses handed to every
+    instance's ``fit_body``.  Outputs are (I, ...), or (L, I, ...).
     """
-    N = points.shape[0]
+    N = points.shape[-2]
     live = valid
     Rs, ts, rms, ok = [], [], [], []
     for _ in range(max_instances):
@@ -375,15 +376,16 @@ def locate_bodies(points, valid, template: BodyTemplate, *,
                        seed_weight=seed_weight)
         # unmatched markers go to a spare slot N, which is then cut off
         idx = torch.where(fit.matched, fit.point_idx.to(torch.int64), N)
-        used = torch.zeros(N + 1, dtype=torch.bool,
-                           device=points.device).index_fill_(0, idx, True)
-        live = live & ~(used[:N] & fit.valid)
+        used = torch.zeros(idx.shape[:-1] + (N + 1,), dtype=torch.bool,
+                           device=points.device).scatter_(-1, idx, True)
+        live = live & ~(used[..., :N] & fit.valid[..., None])
         Rs.append(fit.R)
         ts.append(fit.t)
         rms.append(fit.rms)
         ok.append(fit.valid)
-    out = LocatedBodies(R=torch.stack(Rs), t=torch.stack(ts),
-                        rms=torch.stack(rms), valid=torch.stack(ok))
+    axis = points.dim() - 2
+    out = LocatedBodies(*(torch.stack(x, dim=axis) for x in (Rs, ts, rms,
+                                                              ok)))
     return (out, live) if return_live else out
 
 

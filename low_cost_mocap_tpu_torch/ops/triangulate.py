@@ -5,6 +5,12 @@ rows of the DLT system are zeroed (identical to deleting them), and the
 smallest eigenvector of the 4x4 normal matrix comes from inverse iteration
 with the closed-form adjugate — the same arithmetic as the JAX package, not
 ``torch.linalg.eigh``, whose iterative solver would change the numerics.
+
+The small products here (A^T A, the adjugate times a vector, P X) are
+written out as elementwise sums in a fixed order instead of batched
+matmuls: cuBLAS picks its kernel, and with it the summation order, by the
+batch size, and a frame set must get the same bits whether it is served
+alone, in a batch, or in an offline chunk.
 """
 
 from __future__ import annotations
@@ -27,7 +33,10 @@ def _dlt_system(points_px, Ps, mask):
     r2 = P0 - x * P2
     m = mask[..., None].to(Ps.dtype)
     A = torch.cat([r1 * m, r2 * m], dim=-2)  # (..., 2C, 4)
-    return A.transpose(-1, -2) @ A
+    out = A[..., 0, :, None] * A[..., 0, None, :]
+    for r in range(1, A.shape[-2]):
+        out = out + A[..., r, :, None] * A[..., r, None, :]
+    return out
 
 
 def _adjugate4(A):
@@ -62,8 +71,11 @@ def smallest_eigvec_sym4(B, iters: int = 3):
     adj = _adjugate4(A)
     v = torch.ones(B.shape[:-2] + (4,), dtype=B.dtype, device=B.device)
     for _ in range(iters):
-        v = (adj @ v[..., None])[..., 0]
-        n = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+        v = (adj[..., 0] * v[..., 0:1] + adj[..., 1] * v[..., 1:2]
+             + adj[..., 2] * v[..., 2:3] + adj[..., 3] * v[..., 3:4])
+        sq = v * v
+        n = torch.sqrt(sq[..., 0:1] + sq[..., 1:2] + sq[..., 2:3]
+                       + sq[..., 3:4])
         v = v / torch.clamp_min(n, 1e-30)
     return v
 
@@ -83,13 +95,20 @@ def triangulate_points(points_px, Ps, mask):
     return torch.where(valid[..., None], X, torch.zeros_like(X)), valid
 
 
+def _project(X, Ps):
+    """Homogeneous projections P [X; 1]: (N, 3) points through (C, 3, 4)
+    -> (N, C, 3)."""
+    x = X[:, None, None]
+    return (Ps[..., 0] * x[..., 0] + Ps[..., 1] * x[..., 1]
+            + Ps[..., 2] * x[..., 2] + Ps[..., 3])
+
+
 def reprojection_errors(points_px, X, Ps, mask):
     """Mean squared pixel residual per point; +inf for < 2 views.
 
     points_px: (N, C, 2); X: (N, 3); Ps: (C, 3, 4); mask: (N, C).
     """
-    Xh = torch.cat([X, torch.ones_like(X[..., :1])], dim=-1)   # (N, 4)
-    proj = torch.einsum("cij,nj->nci", Ps, Xh)                  # (N, C, 3)
+    proj = _project(X, Ps)                                      # (N, C, 3)
     z = proj[..., 2]
     z_safe = torch.where(torch.abs(z) < 1e-12, torch.full_like(z, 1e-12), z)
     uv = proj[..., :2] / z_safe[..., None]
@@ -103,8 +122,7 @@ def reprojection_errors(points_px, X, Ps, mask):
 
 def reproject(X, Ps):
     """Project (N, 3) world points through (C, 3, 4) -> (N, C, 2) pixels."""
-    Xh = torch.cat([X, torch.ones_like(X[..., :1])], dim=-1)
-    proj = torch.einsum("cij,nj->nci", Ps, Xh)
+    proj = _project(X, Ps)
     z = proj[..., 2]
     z_safe = torch.where(torch.abs(z) < 1e-12, torch.full_like(z, 1e-12), z)
     return proj[..., :2] / z_safe[..., None]

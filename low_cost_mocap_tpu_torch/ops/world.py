@@ -6,12 +6,11 @@ to-world matrix in full float32, dehomogenise, swap y and z.
 ``fit_floor`` levels the floor plane, ``set_origin`` moves the origin and
 ``determine_scale`` takes the metric scale from the wand.
 
-``fit_floor``'s plane fit is ``torch.linalg.lstsq`` solved by ``gels`` on
-every device (the only solver CUDA has for it), which needs a full-rank
-N x 3 system.  On a sound floor cloud it agrees with the JAX package's
-SVD-based solve; on a degenerate one (fewer than three points, or all of
-them collinear) JAX returns the minimum-norm plane and this returns
-non-finite or arbitrary values.
+``fit_floor``'s plane fit is the SVD minimum-norm least-squares solve of
+``jnp.linalg.lstsq(..., rcond=None)``, written out (``_lstsq_min_norm``)
+because ``torch.linalg.lstsq`` has only ``gels`` on CUDA, which needs a
+full-rank system: on fewer than three floor points, or collinear ones, the
+levelling matrix stays finite and equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -26,10 +25,24 @@ def to_world(points, to_world_matrix):
     flip = torch.tensor([-1.0, -1.0, 1.0], dtype=points.dtype,
                         device=points.device)
     p = points * flip
-    ph = torch.cat([p, torch.ones_like(p[..., :1])], dim=-1)
-    w = ph @ to_world_matrix.to(points.dtype).T
+    M = to_world_matrix.to(points.dtype)
+    # M [p; 1] written out: a matmul's kernel, and its summation order,
+    # would change with the batch size on the card
+    w = (p[..., 0:1] * M[:, 0] + p[..., 1:2] * M[:, 1] + p[..., 2:3] * M[:, 2]
+         + M[:, 3])
     w = w[..., :3] / w[..., 3:4]
     return w[..., [0, 2, 1]]
+
+
+def _lstsq_min_norm(A, b):
+    """Minimum-norm least-squares solution of A x = b through the SVD, with
+    singular values below eps * max(M, N) * s_max dropped: the solve and
+    cut-off of ``jnp.linalg.lstsq(A, b, rcond=None)``."""
+    u, s, vh = torch.linalg.svd(A, full_matrices=False)
+    rcond = torch.finfo(A.dtype).eps * max(A.shape)
+    keep = (s > 0) & (s >= rcond * s[0])
+    s_inv = torch.where(keep, 1.0 / torch.where(keep, s, 1.0), 0.0)
+    return vh.T @ (s_inv[:, None] * (u.T @ b))
 
 
 def fit_floor(object_points, to_world_matrix):
@@ -40,7 +53,7 @@ def fit_floor(object_points, to_world_matrix):
     dtype, dev = object_points.dtype, object_points.device
     q = object_points[:, [0, 2, 1]]                     # pre-swap frame
     A = torch.stack([q[:, 0], q[:, 1], torch.ones_like(q[:, 0])], dim=-1)
-    fit = torch.linalg.lstsq(A, q[:, 2:3], driver="gels").solution
+    fit = _lstsq_min_norm(A, q[:, 2:3])
     a, b = fit[0, 0], fit[1, 0]
     n = torch.stack([-a, -b, torch.ones_like(a)])
     n = n / torch.linalg.vector_norm(n)

@@ -628,9 +628,11 @@ class Engine:
         """Trace the serving loop with ``torch.profiler`` for ``durationMs``
         (default 500) from a thread of its own while the capture loop goes
         on (``utils/profiling.device_trace``: the card's kernels, whichever
-        thread launched them, on a CUDA engine).  Emits ``profile`` with the
-        Chrome trace's path, or with ``error`` when the profiler cannot
-        start (one is already running)."""
+        thread launched them, on a CUDA engine; the profiler starts and
+        stops under the model lock, which the step's launches hold).  Emits
+        ``profile`` with the Chrome trace's path, or with ``error`` when the
+        profiler cannot start (one is already running) or lost the kernel
+        records."""
         duration_s = float(data.get("durationMs", 500)) / 1e3
         log_dir = data.get("path") or os.path.join(
             self.artifacts_dir or tempfile.gettempdir(), "profiles",
@@ -639,7 +641,8 @@ class Engine:
 
         def capture():
             try:
-                with profiling.device_trace(log_dir, self.device) as path:
+                with profiling.device_trace(log_dir, self.device,
+                                            self._model_lock) as path:
                     time.sleep(duration_s)
             except Exception as e:   # reported to the client
                 self.emit("profile", {"error": str(e)})

@@ -67,33 +67,66 @@ class StageTimer:
 
 
 def lost_kernels(trace_text: str) -> bool:
-    """Whether a Chrome trace lists CUDA runtime calls but no kernel: after
-    earlier profiler sessions in the process, CUPTI can drop every kernel
-    record of a session while keeping the launches and copies."""
+    """Whether a Chrome trace lists CUDA runtime calls but no kernel: CUPTI
+    made no kernel record in the session while keeping the launches and
+    copies (``_session``)."""
     return (re.search(r'"cat":\s*"cuda_runtime"', trace_text) is not None
             and re.search(r'"cat":\s*"kernel"', trace_text) is None)
 
 
 @contextlib.contextmanager
-def device_trace(log_dir: str, device="cuda"):
-    """Profile the block; on exit write ``<log_dir>/trace.json``.  Yields
-    that path.  Raises RuntimeError when a profiler is already running, or
-    when the trace of a CUDA device came back without its kernels."""
+def _session(device, quiesce=None):
+    """A ``torch.profiler`` session over the block; yields the profiler.
+
+    It starts and stops with ``quiesce`` held and, on a CUDA device, with
+    the device idle; there it records CUDA activity, on the CPU the calling
+    thread's operators.  CUPTI stops
+    recording the kernels of a thread that launches while the kernel
+    activity is switched on or off, for as long as the process lives (and
+    for a later thread that reuses that thread's id), so every thread that
+    launches on the device must hold ``quiesce`` while it launches."""
     from torch.profiler import ProfilerActivity, profile
 
+    cuda = torch.device(device).type == "cuda"
+    acts = [ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]
+    hold = contextlib.nullcontext() if quiesce is None else quiesce
+    prof = profile(activities=acts)
+    with hold:
+        if cuda:
+            torch.cuda.synchronize(device)
+        prof.start()
+        if cuda:
+            torch.cuda.synchronize(device)
+    try:
+        yield prof
+    finally:
+        with hold:
+            if cuda:
+                torch.cuda.synchronize(device)
+            prof.stop()
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str, device="cuda", quiesce=None):
+    """Profile the block; on exit write ``<log_dir>/trace.json``.  Yields
+    that path.
+
+    On a CUDA device the session records the kernels of every thread that
+    holds ``quiesce`` while it launches (``_session``; the Engine passes
+    its model lock).  Raises RuntimeError when a profiler is already
+    running, or when the trace of a CUDA device came back without its
+    kernels."""
     if not _trace_lock.acquire(blocking=False):
         raise RuntimeError("a profiler is already running")
     try:
         if torch.autograd.profiler._is_profiler_enabled:
             raise RuntimeError("a profiler is already running")
-        cuda = torch.device(device).type == "cuda"
-        acts = [ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]
         path = os.path.join(log_dir, "trace.json")
-        with profile(activities=acts) as prof:
+        with _session(device, quiesce) as prof:
             yield path
         os.makedirs(log_dir, exist_ok=True)
         prof.export_chrome_trace(path)
-        if cuda:
+        if torch.device(device).type == "cuda":
             with open(path) as f:
                 if lost_kernels(f.read()):
                     raise RuntimeError(

@@ -23,6 +23,8 @@ and skip without a card.  On a machine with one, from the repository root:
 does not need.)
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -256,3 +258,100 @@ def test_preprocess_conv_on_the_card_matches_the_cpu(dev):
     got = detect.preprocess(frames.to(dev)).cpu()
     torch.testing.assert_close(got, detect.preprocess(frames), rtol=0,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("B", [1, 128])
+def test_bank_kernel_at_the_large_rigs_width(dev, B):
+    """16 cameras of 8 blob slots: M = 128 candidates (under the 1,024 at
+    which the kernel stages candidates another way), two drones."""
+    case = [torch.from_numpy(a).to(dev) for a in _bank_case(6, B, 128, 2)]
+    _check_bank(dev, case, 2)
+
+
+def test_bank_kernel_over_a_long_recording(dev):
+    """The offline causal pass: 1,500 steps in one launch, then another
+    1,500 from the carried state, against the plain chain."""
+    case = [torch.from_numpy(a).to(dev) for a in _bank_case(8, 1500, 32, 2)]
+    _check_bank(dev, case, 2)
+
+
+def test_detection_inside_process_recording_matches_plain(dev):
+    """Offline processing from frames launches the detection kernel once
+    per chunk over the chunk's frame sets side by side; its results equal
+    those of the plain detector's blobs, frame set by frame set."""
+    from low_cost_mocap_tpu_torch.config import EngineConfig
+    from low_cost_mocap_tpu_torch.models import offline
+    from low_cost_mocap_tpu_torch.ops import camera
+    from low_cost_mocap_tpu_torch.utils import synthetic as syn
+
+    Rs, ts, rig = syn.ring_rig(num_cameras=4)
+    cfg = EngineConfig()
+    frames = []
+    for t in range(20):
+        pos = np.array([0.3 * np.cos(t / 40), 0.3 * np.sin(t / 40), 0.6],
+                       np.float32)
+        pts, mask = syn.observe(syn.drone_markers(pos, 0.0, rig), Rs, ts,
+                                rig)
+        frames.append(syn.render_frames(pts, mask, rig.image_size, sigma=0.8))
+    frames = (np.stack(frames) * 255).astype(np.uint8)
+    K = torch.as_tensor(rig.K_stack(), device=dev)
+    cal = (camera.projection_matrix(K, torch.as_tensor(Rs, device=dev),
+                                    torch.as_tensor(ts, device=dev)),
+           K, torch.as_tensor(rig.dist_stack(), device=dev),
+           torch.eye(4, device=dev))
+    f = torch.from_numpy(frames).to(dev).to(torch.float32) * (1.0 / 255.0)
+    plain = [detect.find_blobs_multi(x, cfg.detect_threshold, cfg.max_blobs,
+                                     cfg.cc_iters) for x in f]
+    blobs = torch.stack([p[0] for p in plain])
+    valid = torch.stack([p[1] for p in plain])
+    n0 = detect_cuda.launches
+    got = offline.process_recording(frames, *cal, rig, cfg, chunk=8)
+    assert detect_cuda.launches - n0 == 3            # chunks of 8, 8, 4
+    want = offline.process_recording((blobs, valid), *cal, rig, cfg)
+    for a, b in zip(got[:5], want[:5]):
+        _assert_same((a,), (b,))
+    _assert_same(got.tracked, want.tracked)
+
+
+def test_two_traces_in_a_row_both_list_the_kernels(dev, tmp_path):
+    """Two ``device_trace`` sessions one after the other (after a session of
+    the main thread), while another thread launches the bank kernel under
+    the lock the traces take as ``quiesce``: both traces list kalman_bank
+    kernels."""
+    import json
+    import threading
+
+    from low_cost_mocap_tpu_torch.utils import profiling
+
+    case = [torch.from_numpy(a).to(dev) for a in _bank_case(3, 4, 32, 2)]
+    st = kalman.init_state(2, device=dev)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]):
+        kalman_cuda.kalman_scan(st, *case)
+        torch.cuda.synchronize()
+    stop, lock = threading.Event(), threading.Lock()
+
+    def loop():
+        while not stop.is_set():
+            with lock:
+                kalman_cuda.kalman_scan(st, *case)
+            torch.cuda.synchronize()
+            stop.wait(0.002)
+
+    th = threading.Thread(target=loop)
+    th.start()
+    paths = []
+    try:
+        for i in range(2):
+            with profiling.device_trace(str(tmp_path / f"t{i}"), dev,
+                                        lock) as path:
+                time.sleep(0.3)
+            paths.append(path)
+    finally:
+        stop.set()
+        th.join()
+    for path in paths:
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        assert any(e.get("cat") == "kernel"
+                   and "kalman_bank" in str(e.get("name")) for e in events)

@@ -22,7 +22,9 @@ Discrete fields are equal; floats within 1e-5 m (positions) and 1e-4
 
 import dataclasses
 import json
+import os
 import threading
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -299,6 +301,33 @@ def test_capture_profile_writes_a_trace_and_reports_a_busy_profiler(
     assert not profiling.lost_kernels(
         f'{{"traceEvents": [{launch}, {kernel}]}}')
     assert not profiling.lost_kernels('{"traceEvents": []}')
+
+
+def test_device_trace_starts_and_stops_under_the_quiesce_lock(tmp_path):
+    """The profiler starts and stops only while it holds ``quiesce``, the
+    lock the launching threads hold (on the card CUPTI loses the kernels of
+    a thread that launches across a start or stop), and not in between."""
+    lock, entered, leave = threading.Lock(), threading.Event(), \
+        threading.Event()
+    res = {}
+
+    def trace():
+        with profiling.device_trace(str(tmp_path), "cpu", lock) as path:
+            entered.set()
+            leave.wait(30)
+        res["path"] = path
+
+    with lock:                          # a launch in progress
+        th = threading.Thread(target=trace)
+        th.start()
+        assert not entered.wait(0.3)    # the start waits for it
+    assert entered.wait(30)
+    with lock:                          # the window is open meanwhile
+        leave.set()
+        time.sleep(0.3)
+        assert "path" not in res        # the stop waits again
+    th.join(30)
+    assert os.path.exists(res["path"])
 
 
 def test_preprocess_matches_jax():

@@ -182,10 +182,18 @@ def test_candidate_ranking_keeps_lowest_index_among_ties():
 
 
 def test_match_points_rejects_unported_modes():
+    """Every JAX mode is ported (assoc and beam are held to JAX in
+    tests/test_torch_correspond_modes.py); a mode JAX does not name is
+    refused."""
     blobs, valid, Ps, Fs = _scene(0)
+    exact = correspond.match_points(_t(blobs), _t(valid), _t(Ps),
+                                    mode="exact", Fs=_t(Fs))
     for mode in ("assoc", "beam"):
-        with pytest.raises(NotImplementedError):
-            correspond.match_points(_t(blobs), _t(valid), _t(Ps), mode=mode)
+        got = correspond.match_points(_t(blobs), _t(valid), _t(Ps),
+                                      mode=mode, Fs=_t(Fs))
+        assert int(got["valid"].sum()) == int(exact["valid"].sum()) > 0
+    with pytest.raises(ValueError, match="mode"):
+        correspond.match_points(_t(blobs), _t(valid), _t(Ps), mode="fast")
 
 
 def test_world_and_rigid_match_jax():
