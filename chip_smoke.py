@@ -15,7 +15,8 @@ cc_iters 24, 2 candidates per camera, 2 drones, batches of 128:
 2b. host detection (the native library) against the ``detect_blobs``
    kernel on the same frames, bitwise;
 3. ``kalman_bank`` against the plain chain at B=128, M=32, O=2 (dropouts,
-   association ties, a gap re-seed) and at B=1;
+   association ties, a gap re-seed) and at B=1, and its device time before
+   the process serves or traces anything;
 4. per-frame serving with detection on the card: the port's
    ``Engine(host_detect=False).process_frame`` over 200 deterministic
    frames of two drones (sparse ingest) — both kernels launch once per
@@ -76,15 +77,29 @@ cc_iters 24, 2 candidates per camera, 2 drones, batches of 128:
    smoothed ATE below the causal one, both kernels against their plain
    versions on the offline inputs; body sets streamed against one-shot;
 13. ``batched_track_from_blobs`` over 8 rigs with their own calibrations,
-   every rig's rows bitwise equal to its own ``track_from_blobs`` run.
+   every rig's rows bitwise equal to its own ``track_from_blobs`` run;
+14. the ``parallel/`` slice, every shard on the one card: [14a]
+   ``Engine(mesh=make_mesh({"cam": d}, ...))`` for d = 2 and 4, per frame
+   over [4]'s frames and in 2 batches of 128, rows bitwise equal to a
+   single-device device-detect engine's, d detection launches a frame;
+   [14b] the 16-camera ring at cam = 4 in 2 batches of 128, rows bitwise
+   equal to the single-device engine's; [14c] ``dist_bundle_adjust`` and
+   ``schur_bundle_adjust`` on [9a]'s wand observations on 1 and 4 point
+   shards, and 4 on the CPU, costs within rtol 1e-3, ms an iteration;
+   [14d] [12]'s recording at time = 4: ``process_sequence`` bitwise equal
+   to the unsharded call, ``smooth_sharded`` within 1e-4 of
+   ``smooth_reference`` away from the edges; [14e] ``run_cluster``: two
+   gloo ranks on the card for live-pipeline, batched-sharded and schur,
+   equal to each other and to one process, and one NCCL rank (the
+   clusters in two waves, side by side within a wave).
 
 [9b] also sends ``acquire-floor`` with two points and with collinear
 points: the installed matrix is finite and the CPU port's.
 
 Every serving path serves with the matcher's observations (``with_obs``).
-Before each serving path ([4]-[5], [9c], [9e], [10]-[13]) the kernels'
+Before each serving path ([4]-[5], [9c], [9e], [10]-[14d]) the kernels'
 launch counts are set to 0, and after it they are held to what the path
-must launch.
+must launch; [14e]'s ranks count their own.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -198,6 +213,17 @@ BODY_STREAM_FRAMES = 300   # [10a]'s body scene, streamed with body sets
 # [13] R copies of the drone rig with their own calibrations
 MULTIRIG = 8
 MULTIRIG_FRAMES = 30
+MESH_SHARDS = (2, 4)       # [14a] cam shards of the drone rig, all on the card
+MESH_PROFILE_FRAMES = 30   # [14a] frames served under torch.profiler
+BA_SHARDS = 4              # [14c] point shards
+BA_RTOL = 1e-3             # [14c] costs: 1 vs 4 shards (JAX's own tolerance)
+BA_CPU_RTOL = 1e-5         # [14c] costs: 4 shards, the card vs the CPU
+BA_ITERS = 15              # [14c] LM steps, every run (ftol 0: no early stop)
+SMOOTH_HALO = 32           # [14d]
+SMOOTH_EDGE = 40           # [14d] frames at each end not held to SMOOTH_ATOL
+SMOOTH_ATOL = 1e-4
+TIME_SHARDS = 4            # [14d]
+CLUSTER_TIMEOUT_S = 300    # [14e] each run_cluster call
 # H100 SXM peaks (NVIDIA's data sheet, at the full 700 W): device memory
 # 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, used for both
 # kernels' scalar work (float32 in the bank, int32 min/select in detection)
@@ -408,25 +434,25 @@ def phase_bank():
         worst = max(worst, err)
         print(f"[3] kalman_bank == plain chain at B={B} (from step {start}), "
               f"max_abs_err {err}")
+    # device times before the process has served or traced anything: a
+    # profiler session later in a long process can lose kernel records
+    # ([6], PERF.md)
+    case = [torch.from_numpy(a).to(DEVICE) for a in bank_case(BATCH)]
+    st = kalman.init_state(2, device=DEVICE)
+    dev = [device_ms(lambda: kalman_cuda.kalman_scan(
+        st, *(a[:B] for a in case)))[0] for B in (BATCH, 1)]
+    print(f"[3] kalman_bank device time before any serving "
+          f"(torch.profiler, {TIMING_RUNS} calls): B={BATCH} {dev[0]:.4f} "
+          f"ms, B=1 {dev[1]:.4f} ms")
     return worst
 
 
 def phase_serve(rig, cfg, Rs, ts):
-    from low_cost_mocap_tpu_torch.runtime.engine import Engine
-    from low_cost_mocap_tpu_torch.runtime.serial_link import CollectingLink
     from low_cost_mocap_tpu_torch.runtime.sources import SyntheticSource
 
     src = SyntheticSource(rig, Rs, ts, num_drones=2, headings=(0.0, np.pi))
     frames = [src.read_at(i / 60) for i in range(N_FRAMES)]
-    # detection on the card: sparse ingest + the detect_blobs kernel
-    eng = Engine(rig, cfg, src, CollectingLink(), host_detect=False,
-                 device=DEVICE)
-    eng.set_camera_poses(Rs, ts)
-    eng.is_capturing_points = True
-    eng.is_triangulating_points = True
-    eng.is_locating_objects = True
-    payloads = []
-    eng.on("object-points", payloads.append)
+    eng, payloads = device_detect_engine(rig, cfg, Rs, ts, src)
     with GcPauses():
         outs, stamps = [], [time.perf_counter()]
         for f in frames:   # each call ends in a device->host readback
@@ -452,6 +478,23 @@ def phase_serve(rig, cfg, Rs, ts):
           f"error mean {errs.mean() * 1e3:.2f} mm max "
           f"{errs.max() * 1e3:.2f} mm; one launch of each kernel per frame")
     return eng, src, fps
+
+
+def device_detect_engine(rig, cfg, Rs, ts, src):
+    """[4]'s engine: detection on the card (sparse ingest and the
+    detect_blobs kernel), tracking, its object-points payloads collected."""
+    from low_cost_mocap_tpu_torch.runtime.engine import Engine
+    from low_cost_mocap_tpu_torch.runtime.serial_link import CollectingLink
+
+    eng = Engine(rig, cfg, src, CollectingLink(), host_detect=False,
+                 device=DEVICE)
+    eng.set_camera_poses(Rs, ts)
+    eng.is_capturing_points = True
+    eng.is_triangulating_points = True
+    eng.is_locating_objects = True
+    payloads = []
+    eng.on("object-points", payloads.append)
+    return eng, payloads
 
 
 def start_tracking(eng, Rs, ts):
@@ -1227,24 +1270,21 @@ def phase_breakdown(eng, src, fps, eng_hd, fps_hd, eng_b, fps_b):
             pipeline.pack_outputs(out).cpu().numpy(), *eng_hd._layout))
     report("[7] detection on the host:")
 
-    def serve(e, fs):
-        def run():
-            for f in fs:
-                e.process_frame(f, 1 / 60)
-        return run
-
     n = len(frames)
     idle = {}
     idle["device detect"] = print_profile(
         "[7] profiled process_frame, detection on the card:",
-        profile_frames(serve(eng, frames), n), 1e3 / fps, n)
+        profile_frames(serve_all(eng, frames, flush=False), n), 1e3 / fps,
+        n)
     idle["host detect"] = print_profile(
         "[7] profiled process_frame, detection on the host (depth 0):",
-        profile_frames(serve(eng_hd, frames), n), 1e3 / fps_hd, n)
+        profile_frames(serve_all(eng_hd, frames, flush=False), n),
+        1e3 / fps_hd, n)
     batch = [src.read_at((N_FRAMES + i) / 60) for i in range(BATCH)]
     idle["batched"] = print_profile(
         f"[7] profiled process_frame, one batch of {BATCH} (inline):",
-        profile_frames(serve(eng_b, batch), BATCH), 1e3 / fps_b, BATCH)
+        profile_frames(serve_all(eng_b, batch, flush=False), BATCH),
+        1e3 / fps_b, BATCH)
     return idle
 
 
@@ -1271,14 +1311,8 @@ def serve_rates():
             stamps.append(time.perf_counter())
     per_frame = (N_FRAMES - WARM_FRAMES) / (stamps[-1] - stamps[WARM_FRAMES])
 
-    def serve(e, fs):
-        def run():
-            for f in fs:
-                e.process_frame(f, 1 / 60)
-        return run
-
-    kernels = profile_frames(serve(eng, frames[:BREAKDOWN_FRAMES]),
-                             BREAKDOWN_FRAMES)[1]
+    kernels = profile_frames(serve_all(eng, frames[:BREAKDOWN_FRAMES],
+                                       flush=False), BREAKDOWN_FRAMES)[1]
     n = BATCH_ROUNDS * BATCH
     bframes = [src.read_at((N_FRAMES + BATCH + i) / 60) for i in range(n)]
     eng_b, _ = serving_engine(
@@ -2131,12 +2165,6 @@ def phase_bodies(rig, cfg, Rs, ts):
                                          rig.num_objects)
 
     # kernels a frame and idle share, with bodies and without
-    def serve(e, fs):
-        def run():
-            for f in fs:
-                e.process_frame(f, 1 / 60)
-        return run
-
     plain, _ = serving_engine(rig, bcfg, Rs, ts, None)
     with GcPauses():
         t0 = time.perf_counter()
@@ -2145,10 +2173,12 @@ def phase_bodies(rig, cfg, Rs, ts):
         fps_plain = BODY_FRAMES / (time.perf_counter() - t0)
     n_prof = 2
     t_prof = time.perf_counter()
-    prof = profile_frames(serve(per, frames[BODY_FRAMES:BODY_FRAMES
-                                            + n_prof]), n_prof)
-    prof_plain = profile_frames(serve(plain, frames[BODY_FRAMES:BODY_FRAMES
-                                                    + n_prof]), n_prof)
+    prof = profile_frames(serve_all(per, frames[BODY_FRAMES:BODY_FRAMES
+                                                + n_prof], flush=False),
+                          n_prof)
+    prof_plain = profile_frames(serve_all(
+        plain, frames[BODY_FRAMES:BODY_FRAMES + n_prof], flush=False),
+        n_prof)
     t_prof = time.perf_counter() - t_prof
     idle = print_profile("[10a] profiled process_frame, body rig (host "
                          "detection, per frame):", prof, 1e3 / fps, n_prof)
@@ -2430,7 +2460,8 @@ def phase_large_rig(cfg):
     ones and tracked against the truth; the card's rows against the port
     on the CPU on the same blobs; the bank at M = 128 against its plain
     chain; ``mode="beam"`` on one frame set, the card against the CPU.
-    Returns ({path: (detect, bank) launches}, bank max_abs_err)."""
+    Returns ({path: (detect, bank) launches}, bank max_abs_err, the
+    frames)."""
     import dataclasses
 
     import torch
@@ -2539,6 +2570,8 @@ def phase_large_rig(cfg):
           f"{bank_err}")
     st0 = kalman.init_state(O, device=DEVICE)
     bank128_ms = cuda_ms(lambda: kalman_cuda.kalman_scan(st0, *cases[0]))
+    bank128_plain = cuda_ms(lambda: kalman.update_scan(st0, *cases[0]),
+                            runs=3)
     bank128_bound, bank128_by = bank_bound(loc.valid, loc.index, BATCH,
                                            C * K, O)
 
@@ -2562,17 +2595,10 @@ def phase_large_rig(cfg):
                    for k in ("object_points", "obs"))
     check(beam_err <= LARGE_CPU_ATOL, f"[11] beam card vs CPU {beam_err}")
 
-    def serve(e, fs):
-        def run():
-            for f in fs:
-                e.process_frame(f, 1 / 60)
-            e.flush_batches()
-        return run
-
     n_prof = 10
-    prof = profile_frames(serve(per, frames[LARGE_FRAMES:LARGE_FRAMES
-                                            + n_prof]), n_prof)
-    prof_b = profile_frames(serve(bat, frames[:BATCH]), BATCH)
+    prof = profile_frames(serve_all(per, frames[LARGE_FRAMES:LARGE_FRAMES
+                                                + n_prof]), n_prof)
+    prof_b = profile_frames(serve_all(bat, frames[:BATCH]), BATCH)
     idle = print_profile(f"[11] profiled process_frame, {C} cameras, per "
                          "frame:", prof, 1e3 / fps, n_prof)
     idle_b = print_profile(f"[11] profiled process_frame, {C} cameras, one "
@@ -2590,13 +2616,14 @@ def phase_large_rig(cfg):
           f"slots equal, max_abs_err {worst:.2e}; kalman_bank at M={C * K} "
           f"(served candidates B={BATCH}, random B={BATCH} and 1) "
           f"max_abs_err {bank_err}, on the served candidates "
-          f"{bank128_ms:.4f} ms (bound {bank128_bound:.3e} ms by "
-          f"{bank128_by}); beam mode on one frame set: "
+          f"{bank128_ms:.4f} ms (plain {bank128_plain:.2f} ms, bound "
+          f"{bank128_bound:.3e} ms by {bank128_by}); beam mode on one frame "
+          f"set: "
           f"{int(beam[DEVICE]['valid'].sum())} points, card vs CPU "
           f"validity equal, max_abs_err {beam_err:.2e}, {beam_ms:.1f} ms")
     print(f"[11] engine stages, per frame (mean ms): {stage_means(per)}")
     print(f"[11] took {time.perf_counter() - t_all:.1f} s")
-    return launches, bank_err
+    return launches, bank_err, frames
 
 
 def drone_truth_world(src, t):
@@ -2709,8 +2736,15 @@ def phase_offline(rig, cfg, Rs, ts):
     st = kalman.init_state(rig.num_objects, device=DEVICE)
     case = (loc.pos, loc.heading, loc.index, loc.valid, d)
     st1, tr1 = kalman_cuda.kalman_scan(st, *case)
+    # the plain chain's time: this comparison call, in CUDA events
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
     st2, tr2 = kalman.update_scan(st, *case)
+    ev[1].record()
     torch.cuda.synchronize()
+    bank_long_plain = ev[0].elapsed_time(ev[1])
+    bank_long_bound, bank_long_by = bank_bound(
+        loc.valid, loc.index, T, loc.valid.shape[-1], rig.num_objects)
     check(torch.equal(tr1.valid, tr2.valid), "[12] kalman_bank B=1500 "
           "validity")
     bank_err = max(max_err(a, b) for a, b in zip((*tr1[:3], *st1),
@@ -2776,7 +2810,9 @@ def phase_offline(rig, cfg, Rs, ts):
           f"(rmse {ate_s['rmse'] * 1e3:.2f}, n {ate_s['n']}); detect_blobs "
           f"on a chunk ({OFFLINE_CHUNK * 4} cameras) == plain, max_abs_err "
           f"{det_err}; kalman_bank B={T} == plain chain, max_abs_err "
-          f"{bank_err}, {bank_long_ms:.4f} ms")
+          f"{bank_err}, {bank_long_ms:.4f} ms (plain chain "
+          f"{bank_long_plain:.1f} ms, one call; bound {bank_long_bound:.3e} "
+          f"ms by {bank_long_by})")
     print(f"[12] body sets (I=3) over {BODY_STREAM_FRAMES} frames of the "
           f"body scene: one-shot (host detection included) {t_one:.2f} s, "
           f"stream_recording {t_stream:.2f} s, tracks, fits and body "
@@ -2839,6 +2875,447 @@ def phase_multirig(cfg):
           f"({launches[1]} launches); rows {tuple(tracked.shape)}")
     return launches
 
+
+def served_rows(eng, frames):
+    """Every packed row ``eng`` decodes while it serves ``frames`` (pending
+    batches flushed), as (n, L)."""
+    rows = capture_rows(eng)
+    serve_all(eng, frames)()
+    return np.concatenate(rows)
+
+
+def capture_rows(eng):
+    """Every packed row ``eng`` decodes, in order: a list that grows as the
+    engine serves (concatenate it for the (n, L) rows)."""
+    rows = []
+    decode = eng._decode
+
+    def capture(rb):
+        outs = decode(rb)
+        buf = rb.ring.bufs[rb.slot]
+        rows.append(buf.numpy().reshape(-1, buf.shape[-1]).copy())
+        return outs
+
+    eng._decode = capture
+    return rows
+
+
+def serve_all(e, fs, flush=True):
+    """A function serving ``fs`` through ``e``, pending batches flushed
+    unless ``flush`` is False."""
+    def run():
+        for f in fs:
+            e.process_frame(f, 1 / 60)
+        if flush:
+            e.flush_batches()
+    return run
+
+
+def timed_serve(eng, frames, warm=0):
+    """Frames/s of ``eng`` over ``frames`` (after the first ``warm``),
+    pending batches flushed."""
+    with GcPauses():
+        stamps = [time.perf_counter()]
+        for f in frames:
+            eng.process_frame(f, 1 / 60)
+            stamps.append(time.perf_counter())
+        eng.flush_batches()
+        stamps[-1] = time.perf_counter()
+    return (len(frames) - warm) / (stamps[-1] - stamps[warm])
+
+
+def check_mesh_kernels(tag, frames_b, rig, cfg, Rs, ts, d):
+    """The two kernels on a shard's inputs against their plain versions:
+    detection on shard 0's cameras of one frame set and of a whole batch,
+    the bank on the batch's located candidates.  Returns (detect err, bank
+    err)."""
+    import torch
+
+    from low_cost_mocap_tpu_torch.models import pipeline
+    from low_cost_mocap_tpu_torch.ops import detect, detect_cuda, kalman
+    from low_cost_mocap_tpu_torch.ops import kalman_cuda
+
+    C = rig.num_cameras
+    packed = torch.from_numpy(np.stack([
+        detect.pack_frames(f, cfg.detect_threshold) for f in frames_b]))
+    args = (0.5, cfg.max_blobs, cfg.cc_iters)
+    det_err = 0.0
+    for f in (packed[0, :C // d], packed[:, :C // d]):
+        x = detect.unpack_bits(f.to(DEVICE)).reshape(-1, *f.shape[-2:-1],
+                                                     f.shape[-1] * 8)
+        k, p = detect_cuda.find_blobs(x, *args), detect.find_blobs_multi(
+            x, *args)
+        torch.cuda.synchronize()
+        check(torch.equal(k[1], p[1]), f"{tag} detect_blobs validity on a "
+              "shard")
+        det_err = max(det_err, *(max_err(a, b) for a, b in zip(k, p)))
+    hb = torch.from_numpy(host_blobs(np.stack(frames_b), cfg)).to(DEVICE)
+    loc = pipeline._locate_frame(hb[..., :2], hb[..., 2] > 0.5,
+                                 *calibration(rig, Rs, ts, DEVICE),
+                                 **tail_kw(rig, cfg))[3]
+    dts = torch.full((len(frames_b),), 1 / 60, device=DEVICE)
+    case = (loc.pos, loc.heading, loc.index, loc.valid, dts)
+    st = kalman.init_state(rig.num_objects, device=DEVICE)
+    st1, tr1 = kalman_cuda.kalman_scan(st, *case)
+    st2, tr2 = kalman.update_scan(st, *case)
+    torch.cuda.synchronize()
+    check(torch.equal(tr1.valid, tr2.valid), f"{tag} kalman_bank validity")
+    bank_err = max(max_err(a, b) for a, b in zip((*tr1[:3], *st1),
+                                                  (*tr2[:3], *st2)))
+    check(det_err <= DETECT_ATOL and bank_err <= BANK_ATOL,
+          f"{tag} kernels vs plain: detect {det_err}, bank {bank_err}")
+    return det_err, bank_err
+
+
+def phase_mesh(rig, cfg, Rs, ts, frames16):
+    """[14a] The drone rig served camera-sharded through
+    ``Engine(mesh=make_mesh({"cam": d}, devices=[card] * d))`` for each d
+    of MESH_SHARDS: per frame over [4]'s N_FRAMES frames and batched over
+    BATCH_ROUNDS batches of BATCH, the packed rows bitwise equal to those
+    of [4]'s single-device device-detect engine on the same frames, d
+    detection launches a frame (d a batch batched).  [14b] the 16-camera
+    ring at cam = 4, batched over [11]'s frames (``frames16``), its rows
+    bitwise equal to those of [11]'s single-device host-detect batched
+    engine.  The references serve outside every timed window.  Returns
+    ({path: launches}, (detect err, bank err), {path: (frames/s, idle
+    share, kernels a frame)})."""
+    import dataclasses
+
+    import torch
+
+    from low_cost_mocap_tpu_torch.parallel import mesh as mesh_lib
+    from low_cost_mocap_tpu_torch.runtime.sources import SyntheticSource
+    from low_cost_mocap_tpu_torch.utils import synthetic as syn
+
+    t_all = time.perf_counter()
+    card = torch.device(DEVICE)
+    src = SyntheticSource(rig, Rs, ts, num_drones=2, headings=(0.0, np.pi))
+    n_b = BATCH_ROUNDS * BATCH
+    frames = [src.read_at(i / 60) for i in range(max(N_FRAMES, n_b))]
+    bcfg = dataclasses.replace(cfg, dispatch_batch=BATCH)
+    # the single-device references, served untimed
+    ref_rows = served_rows(device_detect_engine(rig, cfg, Rs, ts, src)[0],
+                           frames)
+    launches, rates, errs = {}, {}, [(0.0, 0.0)]
+    for d in MESH_SHARDS:
+        mesh = mesh_lib.make_mesh({"cam": d}, devices=[card] * d)
+        tag = f"[14a] cam={d}"
+        eng, _ = serving_engine(rig, cfg, Rs, ts, src, mesh=mesh)
+        check(eng.device == card and not eng._host_detect,
+              f"{tag}: the mesh engine is not on the card's shards")
+        rows = capture_rows(eng)
+        reset_launches()
+        fps = timed_serve(eng, frames[:N_FRAMES], WARM_FRAMES)
+        launches[f"{tag}, per frame"] = read_launches(
+            f"{tag} per frame", d * N_FRAMES, N_FRAMES)
+        check(np.array_equal(np.concatenate(rows), ref_rows[:N_FRAMES]),
+              f"{tag}: per-frame rows differ from the single-device rows")
+        warm, _ = serving_engine(rig, bcfg, Rs, ts, src, mesh=mesh)
+        serve_all(warm, frames[:BATCH])()
+        beng, _ = serving_engine(rig, bcfg, Rs, ts, src, mesh=mesh)
+        brows = capture_rows(beng)
+        reset_launches()
+        fps_b = timed_serve(beng, frames[:n_b])
+        launches[f"{tag}, batched"] = read_launches(
+            f"{tag} batched", d * BATCH_ROUNDS, BATCH_ROUNDS)
+        check(np.array_equal(np.concatenate(brows), ref_rows[:n_b]),
+              f"{tag}: batched rows differ from the single-device rows")
+        n = MESH_PROFILE_FRAMES
+        prof = profile_frames(serve_all(eng, frames[:n]), n)
+        prof_b = profile_frames(serve_all(beng, frames[:BATCH]), BATCH)
+        idle = print_profile(f"{tag} profiled process_frame, per frame:",
+                             prof, 1e3 / fps, n)
+        idle_b = print_profile(f"{tag} profiled process_frame, one batch "
+                               f"of {BATCH}:", prof_b, 1e3 / fps_b, BATCH)
+        rates[f"{tag} per frame"] = (fps, idle, prof[1])
+        rates[f"{tag} batched"] = (fps_b, idle_b, prof_b[1])
+        errs.append(check_mesh_kernels(tag, frames[:BATCH], rig, cfg, Rs,
+                                       ts, d))
+        print(f"{tag}: per frame {fps:.1f} frames/s after the first "
+              f"{WARM_FRAMES} (idle {idle:.3f}, {prof[1]:.1f} kernels a "
+              f"frame), batched B={BATCH} {fps_b:.1f} frames/s over "
+              f"{BATCH_ROUNDS} batches (idle {idle_b:.3f}, {prof_b[1]:.1f} "
+              f"kernels a frame); rows bitwise equal to the single-device "
+              f"device-detect engine's ({len(ref_rows)} frames); "
+              f"detect_blobs {d} launches a frame ({d} a batch); kernels "
+              f"on a shard's inputs == plain")
+        print(f"{tag} engine stages, per frame (mean ms): "
+              f"{stage_means(eng)}")
+
+    # [14b] the 16-camera ring at cam = 4, batched, on [11]'s frames
+    Rs16, ts16, rig16 = syn.ring_rig(num_cameras=LARGE_CAMERAS,
+                                     image_size=320)
+    src16 = SyntheticSource(rig16, Rs16, ts16, num_drones=2,
+                            headings=(0.0, np.pi))
+    ref16_rows = served_rows(serving_engine(rig16, bcfg, Rs16, ts16,
+                                            src16)[0], frames16)
+    mesh = mesh_lib.make_mesh({"cam": 4}, devices=[card] * 4)
+    warm, _ = serving_engine(rig16, bcfg, Rs16, ts16, src16, mesh=mesh)
+    serve_all(warm, frames16[:BATCH])()
+    eng16, pl16 = serving_engine(rig16, bcfg, Rs16, ts16, src16, mesh=mesh)
+    rows16 = capture_rows(eng16)
+    reset_launches()
+    fps16 = timed_serve(eng16, frames16)
+    launches["[14b] 16 cameras, cam=4, batched"] = read_launches(
+        "[14b]", 4 * BATCH_ROUNDS, BATCH_ROUNDS)
+    check(np.array_equal(np.concatenate(rows16), ref16_rows),
+          "[14b] sharded rows differ from the single-device rows")
+    errs_t, seen = payload_track_errors(src16, pl16)
+    check(seen >= LARGE_SEEN * (n_b - SETTLE_FRAMES)
+          and errs_t.mean() < TRACK_MEAN_M,
+          f"[14b] tracked in {seen} frames, error mean {errs_t.mean():.4f}")
+    prof = profile_frames(serve_all(eng16, frames16[:BATCH]), BATCH)
+    idle16 = print_profile(f"[14b] profiled process_frame, one batch of "
+                           f"{BATCH}:", prof, 1e3 / fps16, BATCH)
+    rates["[14b] 16 cameras, cam=4, batched"] = (fps16, idle16, prof[1])
+    errs.append(check_mesh_kernels("[14b]", frames16[:BATCH], rig16, cfg,
+                                   Rs16, ts16, 4))
+    print(f"[14b] {LARGE_CAMERAS}-camera ring at cam=4, batched B={BATCH}: "
+          f"{fps16:.1f} frames/s over {BATCH_ROUNDS} batches (idle "
+          f"{idle16:.3f}, {prof[1]:.1f} kernels a frame); rows bitwise "
+          f"equal to the single-device host-detect engine's; both drones "
+          f"tracked in {seen} settled frames, error mean "
+          f"{errs_t.mean() * 1e3:.2f} mm")
+    print(f"[14a]-[14b] took {time.perf_counter() - t_all:.1f} s")
+    return launches, tuple(max(e[i] for e in errs) for i in (0, 1)), rates
+
+
+def phase_dist_ba(rig, Rs, ts):
+    """[14c] ``dist_bundle_adjust`` and ``schur_bundle_adjust`` on [9a]'s
+    wand observations from poses 0.02 rad / 3 cm off, on a ``point`` mesh
+    of 1 and of BA_SHARDS shards on the card, and of BA_SHARDS on the
+    CPU, each BA_ITERS steps (no early stop, so every run's cost is taken
+    at the same step): the card's 4-shard cost within BA_RTOL of its
+    one-shard cost, the CPU's 4-shard cost within BA_CPU_RTOL of the
+    card's, ms per LM iteration (one device read each)."""
+    import torch
+
+    from low_cost_mocap_tpu_torch.ops import rotations as rot
+    from low_cost_mocap_tpu_torch.parallel import mesh as mesh_lib
+    from low_cost_mocap_tpu_torch.parallel.dist_ba import dist_bundle_adjust
+    from low_cost_mocap_tpu_torch.parallel.schur_ba import \
+        schur_bundle_adjust
+
+    t_all = time.perf_counter()
+    card = torch.device(DEVICE)
+    pts, mask, _ = wand_capture(rig, Rs, ts, WAND_FRAMES)
+    rng = np.random.default_rng(4)
+    R0, t0 = Rs[0].copy(), ts[0].copy()
+    Rs_g = np.einsum("cij,jk->cik", Rs, R0.T).astype(np.float32)
+    ts_g = (ts - np.einsum("cij,j->ci", Rs_g, t0)).astype(np.float32)
+    dR = rot.rotvec_to_matrix(torch.as_tensor(rng.normal(
+        scale=0.02, size=(rig.num_cameras, 3)).astype(np.float32))).numpy()
+    Rs_p = np.einsum("cij,cjk->cik", dR, Rs_g).astype(np.float32)
+    ts_p = (ts_g + rng.normal(scale=0.03, size=ts_g.shape)).astype(
+        np.float32)
+    Rs_p[0], ts_p[0] = np.eye(3, dtype=np.float32), 0
+    args = [torch.as_tensor(a) for a in (pts, mask, rig.K_stack(), Rs_p,
+                                         ts_p)]
+    out = {}
+    for name, solver in (("dist", dist_bundle_adjust),
+                         ("schur", schur_bundle_adjust)):
+        for where, n in (("card", 1), ("card", BA_SHARDS),
+                         ("cpu", BA_SHARDS)):
+            dev = card if where == "card" else torch.device("cpu")
+            mesh = mesh_lib.make_mesh({"point": n}, devices=[dev] * n)
+            if where == "card":
+                solver(mesh, *args, max_iters=2)       # warm
+                torch.cuda.synchronize()
+            stats = {}
+            t0 = time.perf_counter()
+            res = solver(mesh, *args, max_iters=BA_ITERS, ftol=0.0,
+                         stats=stats)
+            cost = float(res.cost)
+            wall = time.perf_counter() - t0
+            check(np.isfinite(cost), f"[14c] {name} cost {cost}")
+            out[name, where, n] = (cost, wall / stats["iterations"] * 1e3,
+                                   stats["iterations"])
+        c1 = out[name, "card", 1][0]
+        c4 = out[name, "card", BA_SHARDS][0]
+        c4_cpu = out[name, "cpu", BA_SHARDS][0]
+        gaps = (abs(c4 - c1) / abs(c1), abs(c4_cpu - c4) / abs(c4))
+        check(gaps[0] <= BA_RTOL, f"[14c] {name}: cost {c4} on "
+              f"{BA_SHARDS} shards vs {c1} on one")
+        check(gaps[1] <= BA_CPU_RTOL, f"[14c] {name}: cost {c4_cpu} on the "
+              f"CPU vs {c4} on the card, {BA_SHARDS} shards")
+        print(f"[14c] {name}_bundle_adjust on {WAND_FRAMES} wand frames: "
+              + "; ".join(f"{w} {n} shard{'s' * (n > 1)} cost {c:.4f}, "
+                          f"{ms:.2f} ms an iteration over {it}"
+                          for (nm, w, n), (c, ms, it) in out.items()
+                          if nm == name)
+              + f"; relative cost gaps: {BA_SHARDS} vs 1 shard "
+              f"{gaps[0]:.2e} (limit {BA_RTOL}), the CPU vs the card "
+              f"{gaps[1]:.2e} (limit {BA_CPU_RTOL})")
+    print(f"[14c] took {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
+def phase_temporal(rig, cfg, Rs, ts):
+    """[14d] [12]'s recording at ``time`` = TIME_SHARDS on the card:
+    ``process_sequence`` (detection, one launch a shard, and the geometry
+    over each block) bitwise equal to the unsharded call, and
+    ``smooth_sharded`` of the causal drone tracks (halo SMOOTH_HALO)
+    within SMOOTH_ATOL of ``smooth_reference`` away from the sequence's
+    edges.  Returns ({path: launches}, times)."""
+    import torch
+
+    from low_cost_mocap_tpu_torch.models import offline, pipeline
+    from low_cost_mocap_tpu_torch.ops import detect_cuda
+    from low_cost_mocap_tpu_torch.parallel import mesh as mesh_lib
+    from low_cost_mocap_tpu_torch.parallel import temporal
+    from low_cost_mocap_tpu_torch.runtime.sources import SyntheticSource
+
+    t_all = time.perf_counter()
+    card = torch.device(DEVICE)
+    T = OFFLINE_FRAMES
+    src = SyntheticSource(rig, Rs, ts, num_drones=2, headings=(0.0, np.pi))
+    frames = np.stack([src.read_at(i / OFFLINE_FPS) for i in range(T)])
+    cal = calibration(rig, Rs, ts, DEVICE)
+    mesh = mesh_lib.make_mesh({"time": TIME_SHARDS},
+                              devices=[card] * TIME_SHARDS)
+
+    def per_frame(block):            # (T', C, H, W) uint8 on the card
+        f = block.to(torch.float32) * (1.0 / 255.0)
+        c, v, _ = detect_cuda.find_blobs(
+            f.reshape(-1, *f.shape[2:]), cfg.detect_threshold,
+            cfg.max_blobs, cfg.cc_iters)
+        lead = block.shape[:2]
+        c, v = c.reshape(*lead, *c.shape[1:]), v.reshape(*lead, -1)
+        _, match, pts, loc = pipeline._locate_frame(c, v, *cal,
+                                                    **tail_kw(rig, cfg))
+        return c, v, pts, match["valid"], loc.pos, loc.valid
+
+    seq = torch.from_numpy(frames)
+    per_frame(seq[:8].to(card))                # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = temporal.process_sequence(mesh, seq, per_frame)
+    torch.cuda.synchronize()
+    ms_seq = (time.perf_counter() - t0) * 1e3
+    launches = {"[14d] process_sequence, time=4": read_launches(
+        "[14d] process_sequence", TIME_SHARDS, 0)}
+    want = per_frame(seq.to(card))
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "[14d] process_sequence differs from the unsharded call")
+
+    blobs, valid = offline.detect_recording_host(frames, cfg.detect_threshold,
+                                                 cfg.max_blobs)
+    tracks = offline.process_recording(
+        (blobs, valid), *cal[:4], rig, cfg,
+        dts=np.full((T,), 1 / OFFLINE_FPS, np.float32)).tracked.pos
+    x = tracks.reshape(T, -1)
+    temporal.smooth_sharded(mesh, x[:4 * SMOOTH_HALO], halo=SMOOTH_HALO)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sm = temporal.smooth_sharded(mesh, x, halo=SMOOTH_HALO)
+    torch.cuda.synchronize()
+    ms_sharded = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref = temporal.smooth_reference(x)
+    torch.cuda.synchronize()
+    ms_ref = (time.perf_counter() - t0) * 1e3
+    err = max_err(sm[SMOOTH_EDGE:-SMOOTH_EDGE], ref[SMOOTH_EDGE:-SMOOTH_EDGE])
+    check(err < SMOOTH_ATOL, f"[14d] smooth_sharded vs reference {err}")
+    print(f"[14d] process_sequence over {T} frame sets at time="
+          f"{TIME_SHARDS} (detection + geometry a block, "
+          f"{T // TIME_SHARDS} frame sets = {T // TIME_SHARDS * 4} cameras "
+          f"a launch): {ms_seq:.1f} ms, bitwise equal to the unsharded "
+          f"call; smooth_sharded (halo {SMOOTH_HALO}) of the {T}x"
+          f"{x.shape[1]} causal tracks {ms_sharded:.1f} ms against "
+          f"smooth_reference {ms_ref:.1f} ms, max_abs_err {err:.2e} away "
+          f"from the first and last {SMOOTH_EDGE} frames")
+    print(f"[14d] took {time.perf_counter() - t_all:.1f} s")
+    return launches, (ms_seq, ms_sharded, ms_ref)
+
+
+def phase_cluster():
+    """[14e] ``run_cluster`` on the card: two gloo ranks, both on the card,
+    2 local shards each, for live-pipeline, batched-sharded and schur —
+    the ranks' results equal each other and a one-process run (for schur,
+    one process of the same 4 shards; the detection and bank kernels
+    launch in every rank); and one NCCL rank for live-pipeline.  The
+    clusters run in two waves, the clusters of a wave side by side (a
+    cluster's time is mostly its processes starting).  Two processes on
+    one card need its Default compute mode."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from low_cost_mocap_tpu_torch.parallel.multiprocess import run_cluster
+
+    t_all = time.perf_counter()
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    check(mode.splitlines()[:1] == ["Default"], f"[14e] compute mode {mode!r}"
+          ": two processes cannot share the card")
+    walls = {}
+
+    def cluster(name, n, local, **kw):
+        t0 = time.perf_counter()
+        res = run_cluster(n, local, device=DEVICE,
+                          timeout_s=CLUSTER_TIMEOUT_S, **kw)
+        walls[name] = (time.perf_counter() - t0,
+                       max(r["wall_s"] for r in res))
+        return res
+
+    def wave(specs):
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(specs)) as ex:
+            futs = {name: ex.submit(cluster, name, *spec[:2], **spec[2])
+                    for name, spec in specs.items()}
+            out = {name: f.result() for name, f in futs.items()}
+        walls[f"wave of {len(specs)}"] = (time.perf_counter() - t0, 0.0)
+        return out
+
+    gloo = dict(backend="gloo")
+    res = wave({
+        "live-pipeline nccl 1x1": (1, 1, dict(solver="live-pipeline",
+                                               backend="nccl")),
+        "live-pipeline gloo 2x2": (2, 2, dict(solver="live-pipeline",
+                                               **gloo)),
+        "batched-sharded gloo 1x1": (1, 1, dict(solver="batched-sharded",
+                                                 **gloo)),
+        "batched-sharded gloo 2x2": (2, 2, dict(solver="batched-sharded",
+                                                 **gloo))})
+    nccl1 = res["live-pipeline nccl 1x1"][0]
+    live = res["live-pipeline gloo 2x2"]
+    bat1 = res["batched-sharded gloo 1x1"][0]
+    bat = res["batched-sharded gloo 2x2"]
+    check(live[0]["global_devices"] == 4
+          and live[0]["rows_sha"] == live[1]["rows_sha"]
+          == nccl1["rows_sha"], "[14e] live-pipeline: ranks' rows differ "
+          "from each other or from the one-process NCCL run")
+    check(any(nccl1["tracked_valid"]), "[14e] live-pipeline tracked nothing")
+    check(bat[0]["rows_sha"] == bat[1]["rows_sha"] == bat1["rows_sha"]
+          and bat[0]["frames_tracked"] >= 7,
+          "[14e] batched-sharded: ranks' rows differ")
+    for r in (*live, nccl1, *bat, bat1):
+        want = ((3 * r["local_devices"], 3) if r["solver"] == "live-pipeline"
+                else (r["local_devices"], 1))
+        got = (r["launches"]["detect_blobs"], r["launches"]["kalman_bank"])
+        check(got == want, f"[14e] {r['solver']} rank {r['process_id']} of "
+              f"{r['num_processes']}: launches {got}, want {want}")
+    res = wave({"schur gloo 1x4": (1, 4, dict(solver="schur", **gloo)),
+                "schur gloo 2x2": (2, 2, dict(solver="schur", **gloo))})
+    schur4 = res["schur gloo 1x4"][0]
+    schur = res["schur gloo 2x2"]
+    check(schur[0]["cost"] == schur[1]["cost"] == schur4["cost"]
+          and schur[0]["ts"] == schur[1]["ts"] == schur4["ts"],
+          "[14e] schur: ranks' results differ from each other or from one "
+          "process of the same 4 shards")
+    print(f"[14e] run_cluster on the card ({mode}): live-pipeline 2 gloo "
+          f"ranks x 2 shards rows == one NCCL rank's; batched-sharded 2 "
+          f"gloo ranks == one process ({bat[0]['frames_tracked']} of 8 "
+          f"frames tracked); schur 2 gloo ranks == one process of 4 shards "
+          f"(cost {schur4['cost']:.4f}, {schur[0]['ms_per_iter']:.2f} ms an "
+          f"iteration); detect_blobs and kalman_bank launched in every "
+          f"rank")
+    print("[14e] wall s, the clusters of a wave side by side (launch to "
+          "results; the workers' own timed part): "
+          + "; ".join(f"{k} {a:.1f} ({b:.3f})" for k, (a, b) in
+                      walls.items()))
+    print(f"[14e] took {time.perf_counter() - t_all:.1f} s")
+    return walls
 
 def main() -> None:
     import torch
@@ -2907,15 +3384,27 @@ def main() -> None:
         rig, cfg, Rs, ts, events=2, tag="[10d']", ms=PROFILE_AGAIN_MS)
     print(f"[10] took {time.perf_counter() - t10:.1f} s")
     t11 = time.perf_counter()
-    large_paths, bank128_err = phase_large_rig(cfg)
+    large_paths, bank128_err, frames16 = phase_large_rig(cfg)
     paths.update(large_paths)
     offline_paths, (off_det_err, off_bank_err) = phase_offline(rig, cfg, Rs,
                                                                ts)
     paths.update(offline_paths)
     paths["[13] batched_track_from_blobs, 8 rigs"] = phase_multirig(cfg)
     print(f"[11]-[13] took {time.perf_counter() - t11:.1f} s")
-    det_err = max(det_err, pre_det_err, off_det_err)
-    bank_err = max(bank_err, bank64_err, bank128_err, off_bank_err)
+    # [14] the parallel/ slice: camera-sharded serving, the distributed
+    # solvers, time sharding, and clusters of processes on the card
+    t14 = time.perf_counter()
+    mesh_paths, (mesh_det_err, mesh_bank_err), _ = phase_mesh(
+        rig, cfg, Rs, ts, frames16)
+    paths.update(mesh_paths)
+    phase_dist_ba(rig, Rs, ts)
+    temporal_paths, _ = phase_temporal(rig, cfg, Rs, ts)
+    paths.update(temporal_paths)
+    phase_cluster()         # other processes: their launches print there
+    print(f"[14] took {time.perf_counter() - t14:.1f} s")
+    det_err = max(det_err, pre_det_err, off_det_err, mesh_det_err)
+    bank_err = max(bank_err, bank64_err, bank128_err, off_bank_err,
+                   mesh_bank_err)
     launches = tuple(int(sum(v[i] for v in paths.values())) for i in (0, 1))
     for name, (d, k) in paths.items():
         print(f"    {name}: detect_blobs {d}, kalman_bank {k} launches")

@@ -220,6 +220,21 @@ def make_init_state(rig, device=None):
     return ks
 
 
+def tail_kwargs(rig, cfg, with_obs: bool = False) -> dict:
+    """The keyword options of ``track_from_blobs`` and
+    ``scan_track_from_blobs`` that a rig and an ``EngineConfig`` set: one
+    place for the Engine's tail and the camera-sharded step's."""
+    return dict(gate_px=cfg.epipolar_gate_px,
+                max_candidates=cfg.max_candidates_per_cam,
+                marker_dist1=rig.marker_dist_short,
+                marker_dist2=rig.marker_dist_long,
+                marker_tol=rig.marker_dist_tol,
+                marker_side_min=rig.marker_side_min,
+                body_sets=rig.body_sets_resolved(),
+                kalman_report=cfg.kalman_report,
+                with_obs=with_obs)
+
+
 def _resolve_sets(body_template, max_bodies, body_sets):
     """``body_template``/``max_bodies`` is single-set shorthand."""
     if body_sets is None and body_template is not None:

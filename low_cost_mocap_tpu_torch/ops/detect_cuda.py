@@ -69,10 +69,11 @@ def find_blobs(frames, threshold: float, max_blobs: int, cc_iters: int = 24,
     work = torch.empty(_work_ints(C, H, W, cc_iters), dtype=torch.int32,
                        device=dev)
     out = torch.empty(C * K * 13, dtype=torch.uint8, device=dev)
-    native.check(lib.lcm_detect_blobs(
-        frames.data_ptr(), C, H, W, float(threshold), K, cc_iters,
-        work.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream), NAME)
+    with torch.cuda.device(dev):   # the C launcher uses the current device
+        native.check(lib.lcm_detect_blobs(
+            frames.data_ptr(), C, H, W, float(threshold), K, cc_iters,
+            work.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream), NAME)
     launches += 1
     floats = out[:C * K * 12].view(torch.float32)
     cent = floats[:C * K * 2].view(C, K, 2)

@@ -259,35 +259,54 @@ def rts_smooth(xs, Ps, dts, *, process_noise: float = 1e-2):
     return torch.stack(out_x[::-1]), torch.stack(out_P[::-1])
 
 
-def rts_smooth_assoc(xs, Ps, dts, *, process_noise: float = 1e-2):
-    """``rts_smooth`` in log depth (Sarkka and Garcia-Fernandez, IEEE TAC
-    2021).  The backward recursion applies per-step affine maps
-    x_s[k] = E_k x_s[k+1] + g_k (noise L_k), with E_k = C_k,
-    g_k = x[k] - C_k F_k x[k], L_k = P_k - C_k P_pred C_k'; composition
-    is associative, so every suffix composition a_k o ... o a_{T-2} comes
-    from ceil(log2 T) rounds of batched 9x9 products (a Hillis-Steele
-    scan).  Equal to ``rts_smooth`` to float precision."""
+def rts_elements(xs, Ps, dts, *, process_noise: float = 1e-2):
+    """The backward recursion's affine maps a_k, k = 0 .. T-2, as (E, g, L)
+    with leading (T-1, O): x_s[k] = E_k x_s[k+1] + g_k (noise L_k), with
+    E_k = C_k, g_k = x[k] - C_k F_k x[k], L_k = P_k - C_k P_pred C_k'
+    (``rts_smooth``'s quantities; dts[k] is the interval before frame
+    k)."""
     Q = torch.eye(9, dtype=xs.dtype, device=xs.device) * process_noise
     F = _transition(dts[1:])                                  # (T-1, 9, 9)
     x_pred = torch.einsum("tij,toj->toi", F, xs[:-1])
     P_pred = torch.einsum("tij,tojk,tlk->toil", F, Ps[:-1], F) + Q
     C = torch.einsum("toij,tkj,tokl->toil", Ps[:-1], F,
                      torch.linalg.inv(P_pred))
-    E = C                                                     # (T-1, O, 9, 9)
     g = xs[:-1] - torch.einsum("toij,toj->toi", C, x_pred)
     L = Ps[:-1] - torch.einsum("toij,tojk,tolk->toil", C, P_pred, C)
+    return C, g, L
+
+
+def compose_maps(a, b):
+    """a o b of two (E, g, L) affine maps with leading (t, O): the earlier
+    map ``a`` outermost, (a o b)(x) = a(b(x))."""
+    Ea, ga, La = a
+    Eb, gb, Lb = b
+    return (torch.einsum("toij,tojk->toik", Ea, Eb),
+            torch.einsum("toij,toj->toi", Ea, gb) + ga,
+            torch.einsum("toij,tojk,tolk->toil", Ea, Lb, Ea) + La)
+
+
+def suffix_compose(E, g, L):
+    """Every suffix composition a_k o ... o a_{n-1} of n maps, in
+    ceil(log2 n) rounds of batched products (a Hillis-Steele scan)."""
     n, step = E.shape[0], 1
     while step < n:
-        # element t composes with the suffix starting at t + step: the
-        # earlier map outermost, (a_t o a_later)(x) = a_t(a_later(x))
-        Ea, ga, La = E[step:], g[step:], L[step:]
-        Eb, gb, Lb = E[:-step], g[:-step], L[:-step]
-        E = torch.cat([torch.einsum("toij,tojk->toik", Eb, Ea), E[-step:]])
-        g = torch.cat([torch.einsum("toij,toj->toi", Eb, ga) + gb,
-                       g[-step:]])
-        L = torch.cat([torch.einsum("toij,tojk,tolk->toil", Eb, La, Eb) + Lb,
-                       L[-step:]])
+        # element t composes with the suffix starting at t + step
+        c = compose_maps((E[:-step], g[:-step], L[:-step]),
+                         (E[step:], g[step:], L[step:]))
+        E, g, L = (torch.cat([x, y[-step:]]) for x, y in zip(c, (E, g, L)))
         step *= 2
+    return E, g, L
+
+
+def rts_smooth_assoc(xs, Ps, dts, *, process_noise: float = 1e-2):
+    """``rts_smooth`` in log depth (Sarkka and Garcia-Fernandez, IEEE TAC
+    2021).  The backward recursion applies per-step affine maps
+    (``rts_elements``); composition is associative, so every suffix
+    composition a_k o ... o a_{T-2} comes from ``suffix_compose``.  Equal
+    to ``rts_smooth`` to float precision."""
+    E, g, L = suffix_compose(*rts_elements(xs, Ps, dts,
+                                           process_noise=process_noise))
     xs_s = torch.einsum("toij,oj->toi", E, xs[-1]) + g
     Ps_s = torch.einsum("toij,ojk,tolk->toil", E, Ps[-1], E) + L
     return (torch.cat([xs_s, xs[-1:]]), torch.cat([Ps_s, Ps[-1:]]))

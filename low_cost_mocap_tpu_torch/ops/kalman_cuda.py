@@ -92,11 +92,14 @@ def kalman_scan(state: KalmanState, cand_pos_seq, cand_heading_seq,
     BO = B * O
     nf = 7 * BO + O * sum(_STATE_FLOATS)
     out = torch.empty(4 * nf + BO + O, dtype=torch.uint8, device=dev)
-    native.check(lib.lcm_kalman_bank(
-        *(t.data_ptr() for t in ins[:5]), ctypes.addressof(_butter_host()),
-        *(t.data_ptr() for t in ins[5:]), out.data_ptr(),
-        B, M, O, process_noise, meas_noise, gap_reset_s,
-        report == "post", torch.cuda.current_stream(dev).cuda_stream), NAME)
+    with torch.cuda.device(dev):   # the C launcher uses the current device
+        native.check(lib.lcm_kalman_bank(
+            *(t.data_ptr() for t in ins[:5]),
+            ctypes.addressof(_butter_host()),
+            *(t.data_ptr() for t in ins[5:]), out.data_ptr(),
+            B, M, O, process_noise, meas_noise, gap_reset_s,
+            report == "post", torch.cuda.current_stream(dev).cuda_stream),
+            NAME)
     launches += 1
     fbytes, bbytes = out.split([4 * nf, BO + O])
     pos, vel, heading, x, P, prev, lh, lv, age = fbytes.view(_F32).split(

@@ -19,7 +19,13 @@ Ingest paths, chosen at construction (the JAX engine's choice):
   and the ``detect_blobs`` kernel detects on the card;
 - **dense** (``fast_path=False``, and with ``preprocess_frames``): uint8
   frames go up whole, and with ``preprocess_frames`` are blurred and
-  sharpened on the card before detection.
+  sharpened on the card before detection;
+- **camera-sharded** (``mesh`` with a ``cam`` axis): frames are packed to
+  1 bit on the host, each shard of cameras goes to its device and is
+  detected there by the ``detect_blobs`` kernel, and the blobs meet on
+  the mesh's first device, the engine's, for the tail
+  (``parallel/dist_pipeline.py``); with ``dispatch_batch`` = B > 1, one
+  ``dist_scan_frame_step`` per B frames.
 
 Each step's outputs come back as one packed row per frame.  With
 ``readback_pipeline_depth`` = d > 0 the row's copy into a page-locked host
@@ -50,7 +56,6 @@ from a thread of its own.
 
 No path changes quietly: a native library that does not build raises, and
 a CPU engine is only ever one the caller asked for (``device="cpu"``).
-Mesh mode (camera-sharded serving) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -76,6 +81,7 @@ from low_cost_mocap_tpu_torch.models.pipeline import (frame_step,
                                                       pack_outputs,
                                                       row_length,
                                                       scan_track_from_blobs,
+                                                      tail_kwargs,
                                                       track_from_blobs,
                                                       unpack_outputs_batch)
 from low_cost_mocap_tpu_torch.ops import ba as ba_ops
@@ -83,10 +89,12 @@ from low_cost_mocap_tpu_torch.ops import camera as cam_ops
 from low_cost_mocap_tpu_torch.ops import correspond, intrinsics
 from low_cost_mocap_tpu_torch.ops import triangulate as tri_ops
 from low_cost_mocap_tpu_torch.ops import world
-from low_cost_mocap_tpu_torch.ops.detect import (sparse_ingest,
+from low_cost_mocap_tpu_torch.ops.detect import (pack_frames, sparse_ingest,
                                                  threshold_cutoff)
 from low_cost_mocap_tpu_torch.ops.rigid_general import learn_template
 from low_cost_mocap_tpu_torch.ops.rotations import quat_to_matrix_np
+from low_cost_mocap_tpu_torch.parallel.dist_pipeline import (
+    dist_frame_step, dist_scan_frame_step)
 from low_cost_mocap_tpu_torch.runtime.health import CameraHealthMonitor
 from low_cost_mocap_tpu_torch.utils import artifacts, profiling
 from low_cost_mocap_tpu_torch.utils.recordings import save_recording
@@ -105,6 +113,7 @@ class _HostRing:
 
     def __init__(self, n: int, shape, device: torch.device):
         self.cuda = device.type == "cuda"
+        self.device = device
         self.bufs = [torch.zeros(shape, dtype=torch.float32,
                                  pin_memory=self.cuda) for _ in range(n)]
         if self.cuda and not all(b.is_pinned() for b in self.bufs):
@@ -123,7 +132,7 @@ class _HostRing:
     def fence(self, i: int) -> None:
         """Record slot i's event after the copy just enqueued."""
         if self.cuda:
-            self.events[i].record()
+            self.events[i].record(torch.cuda.current_stream(self.device))
 
     def wait(self, i: int) -> None:
         if self.cuda:
@@ -158,11 +167,43 @@ class Engine:
         is asked for; off with ``preprocess_frames``): 1-bit / sparse
         ingest; off means dense uint8 frames.  ``host_detect`` (default:
         the fast path) detects blobs on the host with the native library,
-        which must build.  ``dispatch_batch > 1`` needs host detection.
-        ``mesh`` (camera-sharded serving) is not ported yet."""
+        which must build.  ``dispatch_batch > 1`` needs host detection or
+        a mesh.
+
+        ``mesh`` (``parallel.mesh.make_mesh`` with a ``cam`` axis):
+        camera-sharded serving.  Each shard detects its cameras on its
+        device from 1-bit packed frames, and the tail runs on the mesh's
+        first device, which is the engine's (a ``device`` that differs
+        raises).  The camera count must be divisible by the ``cam`` size;
+        preprocessing, host detection and ``fast_path=False`` raise."""
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh mode (camera-sharded serving) is not ported yet")
+            if device is not None and not _same_device(
+                    resolve_device(device), mesh.tail_device):
+                raise ValueError(
+                    f"device {device} is not the mesh's first device "
+                    f"{mesh.tail_device}")
+            device = mesh.tail_device
+            if "cam" not in mesh.shape:
+                raise ValueError("mesh mode shards cameras over a 'cam' "
+                                 f"axis; the mesh has {mesh.axis_names}")
+            if rig.num_cameras % mesh.shape["cam"] != 0:
+                raise ValueError(
+                    f"{rig.num_cameras} cameras not divisible by cam axis "
+                    f"size {mesh.shape['cam']}")
+            if preprocess_frames:
+                raise ValueError(
+                    "mesh mode has no preprocess path (blur/sharpen); "
+                    "use preprocess_frames=False")
+            if host_detect:
+                raise ValueError(
+                    "mesh mode shards detection on the devices per camera "
+                    "shard; host_detect does not apply")
+            if fast_path is False:
+                raise ValueError(
+                    "mesh mode requires the packed fast path (per-shard "
+                    "1-bit ingest); fast_path=False is not available")
+            fast_path, host_detect = True, False
+        self._mesh = mesh
         self.device = resolve_device(device)
         if preprocess_frames and (fast_path or host_detect):
             raise ValueError(
@@ -182,11 +223,12 @@ class Engine:
         if self._host_detect:
             bindings.get_lib()     # a failed build raises here
         self._batch = max(int(cfg.dispatch_batch), 1)
-        if self._batch > 1 and not self._host_detect:
+        if self._batch > 1 and not (self._host_detect or mesh is not None):
             raise ValueError(
                 "dispatch_batch > 1 requires the host-detect ingest path "
-                "(native detector + fast path): the batched program runs "
-                "pre-detected blobs through scan_track_from_blobs")
+                "(native detector + fast path) or mesh mode: the batched "
+                "program runs pre-detected (or per-shard-detected) blobs "
+                "through scan_track_from_blobs")
 
         self.rig = rig
         self.cfg = cfg
@@ -259,8 +301,14 @@ class Engine:
         C, K = rig.num_cameras, cfg.max_blobs
         # host buffers for host-detect ingest: one frame set, or two
         # batches so one fills while the other's upload may be in flight
-        self._ingest_ring = None
-        if self._batch > 1:
+        self._ingest_ring = self._mesh_batch = None
+        if self._batch > 1 and mesh is not None:
+            # a batch of packed frame sets; each shard's upload copies its
+            # cameras out before the next batch fills the buffer again
+            H, W = rig.image_hw()
+            self._mesh_batch = np.zeros((self._batch, C, H, W // 8),
+                                        np.uint8)
+        elif self._batch > 1:
             self._ingest_ring = _HostRing(2, (self._batch, C, K, 3), dev)
         elif self._host_detect:
             self._ingest_ring = _HostRing(4, (C, K, 3), dev)
@@ -294,17 +342,8 @@ class Engine:
         when learn-body-template applies a template (the row grows by 25
         floats a body slot)."""
         rig, cfg = self.rig, self.cfg
-        sets = rig.body_sets_resolved()
-        self._tail_kw = dict(
-            gate_px=cfg.epipolar_gate_px,
-            max_candidates=cfg.max_candidates_per_cam,
-            marker_dist1=rig.marker_dist_short,
-            marker_dist2=rig.marker_dist_long,
-            marker_tol=rig.marker_dist_tol,
-            marker_side_min=rig.marker_side_min,
-            body_sets=sets,
-            kalman_report=cfg.kalman_report,
-            with_obs=True)
+        self._tail_kw = tail_kwargs(rig, cfg, with_obs=True)
+        sets = self._tail_kw["body_sets"]
         self._step_kw = dict(threshold=cfg.detect_threshold,
                              max_blobs=cfg.max_blobs, cc_iters=cfg.cc_iters,
                              do_preprocess=self._preprocess, **self._tail_kw)
@@ -1155,12 +1194,17 @@ class Engine:
                 frames[frozen] = 0
 
         dt32 = np.float32(dt)
-        if self._host_detect and self._batch > 1:
+        if self._batch > 1:
             return self._run_batched(frames, dt32)
 
         dev = self.device
         with self.timer.stage("ingest"):
-            if self._host_detect:
+            if self._mesh is not None:
+                # 1-bit packed on the host; each shard uploads its cameras
+                kind = "mesh"
+                payload = torch.from_numpy(
+                    pack_frames(frames, self.cfg.detect_threshold))
+            elif self._host_detect:
                 slot = self._ingest_ring.acquire()
                 self._ingest_host_detect(frames, slot)
                 payload = self._upload(self._ingest_ring.bufs[slot])
@@ -1200,6 +1244,10 @@ class Engine:
     def _step(self, kind: str, payload: torch.Tensor, dt32):
         """One frame's step on the device (under the model lock)."""
         cal = (self._Ps, self._K, self._dist, self._M, self._F)
+        if kind == "mesh":
+            return dist_frame_step(self._mesh, self._kalman_state, payload,
+                                   dt32, *cal, self.rig, self.cfg,
+                                   packed=True, with_obs=True)
         if kind == "blobs":
             return track_from_blobs(
                 self._kalman_state, payload[..., :2], payload[..., 2] > 0.5,
@@ -1214,17 +1262,23 @@ class Engine:
 
     def _run_batched(self, frames: np.ndarray, dt32):
         """Batched dispatch: each frame's host detection goes into slot i
-        of a page-locked (B, C, K, 3) buffer; every ``dispatch_batch``
-        frames, one upload and one ``scan_track_from_blobs`` (the bank
-        kernel once at B), one (B, L) readback, pipelined like the
-        per-frame rows.  Returns the newest frame's outputs, or None while
-        the batch (or the pipeline) fills."""
+        of a page-locked (B, C, K, 3) buffer (in mesh mode, its packed
+        frames into row i of a (B, C, H, W/8) buffer); every
+        ``dispatch_batch`` frames, one upload and one
+        ``scan_track_from_blobs`` (the bank kernel once at B; in mesh mode
+        one ``dist_scan_frame_step``), one (B, L) readback, pipelined like
+        the per-frame rows.  Returns the newest frame's outputs, or None
+        while the batch (or the pipeline) fills."""
         with self._model_lock:
             with self.timer.stage("batch-ingest"):
-                if self._batch_slot is None:
-                    self._batch_slot = self._ingest_ring.acquire()
-                self._ingest_host_detect(frames, self._batch_slot,
-                                         len(self._batch_dts))
+                i = len(self._batch_dts)
+                if self._mesh is not None:
+                    self._mesh_batch[i] = pack_frames(
+                        frames, self.cfg.detect_threshold)
+                else:
+                    if self._batch_slot is None:
+                        self._batch_slot = self._ingest_ring.acquire()
+                    self._ingest_host_detect(frames, self._batch_slot, i)
                 self._batch_dts.append(dt32)
             if len(self._batch_dts) < self._batch:
                 return None
@@ -1232,12 +1286,18 @@ class Engine:
                                                     np.float32)
             self._batch_slot, self._batch_dts = None, []
             with self.timer.stage("batch-dispatch"):
-                blobs = self._upload(self._ingest_ring.bufs[slot])
-                self._ingest_ring.fence(slot)
-                self._kalman_state, rows = scan_track_from_blobs(
-                    self._kalman_state, blobs[..., :2], blobs[..., 2] > 0.5,
-                    dl, self._Ps, self._K, self._dist, self._M, self._F,
-                    **self._tail_kw)
+                cal = (self._Ps, self._K, self._dist, self._M, self._F)
+                if self._mesh is not None:
+                    self._kalman_state, rows = dist_scan_frame_step(
+                        self._mesh, self._kalman_state,
+                        torch.from_numpy(self._mesh_batch), dl, *cal,
+                        self.rig, self.cfg, packed=True, with_obs=True)
+                else:
+                    blobs = self._upload(self._ingest_ring.bufs[slot])
+                    self._ingest_ring.fence(slot)
+                    self._kalman_state, rows = scan_track_from_blobs(
+                        self._kalman_state, blobs[..., :2],
+                        blobs[..., 2] > 0.5, dl, *cal, **self._tail_kw)
                 # the readback carries the layout of the rows it reads,
                 # the dts go along for the trajectory ticks
                 item = (self._readback(rows), dl)
@@ -1477,6 +1537,15 @@ def _draw_epiline(strip: np.ndarray, line, x_off: int, W: int, H: int,
     xi = xs[m].astype(np.intp) + x_off
     yi = ys[m].astype(np.intp)
     strip[yi, xi] = np.maximum(strip[yi, xi], value)
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one; ``cuda`` is the current CUDA device."""
+    def norm(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+    return norm(a) == norm(b)
 
 
 def camera_poses_to_serializable(Rs: np.ndarray, ts: np.ndarray):

@@ -4,8 +4,9 @@ Boots source + engine + API server + operator console in one process, as
 ``python -m low_cost_mocap_tpu.serve`` does for the JAX package, with the
 same options.  The engine runs on the CUDA card (``resolve_device``) and
 raises without one; ``main(device="cpu")`` runs it on the CPU.
-``--cam-shards`` (camera-sharded serving) is not ported yet and raises
-``NotImplementedError``.
+``--cam-shards N`` serves camera-sharded over the first N CUDA devices
+(``Engine(mesh=...)``) and raises with fewer (on the CPU, when asked, N
+shards on the CPU).
 """
 
 from __future__ import annotations
@@ -71,7 +72,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "further distinct rigid-body templates tracked "
                         "simultaneously (see RigConfig.body_sets)")
     p.add_argument("--cam-shards", type=int, default=0,
-                   help="camera-sharded serving (not ported yet)")
+                   help="camera-sharded serving over this many CUDA "
+                        "devices (a 'cam' mesh axis): each device detects "
+                        "its cameras' blobs, the tail runs on the first; "
+                        "needs cameras divisible by it")
     p.add_argument("--artifacts-dir", default="artifacts",
                    help="directory for auto-persisted calibration state")
     return p.parse_args(argv)
@@ -87,9 +91,6 @@ def build(args: argparse.Namespace, device=None):
     from low_cost_mocap_tpu_torch.utils import artifacts
     from low_cost_mocap_tpu_torch.utils import synthetic as syn
 
-    if args.cam_shards:
-        raise NotImplementedError(
-            "--cam-shards (camera-sharded serving) is not ported yet")
     body_kw = {}
     if args.body_markers:
         body_kw = dict(
@@ -137,8 +138,28 @@ def build(args: argparse.Namespace, device=None):
     else:
         link = serial_link.CollectingLink()
 
+    mesh = None
+    if args.cam_shards:
+        import torch
+
+        from low_cost_mocap_tpu_torch.device import resolve_device
+        from low_cost_mocap_tpu_torch.parallel import mesh as mesh_lib
+
+        dev = resolve_device(device)
+        if dev.type == "cpu":       # asked for: every shard on the CPU
+            devices = [dev] * args.cam_shards
+        else:
+            n = torch.cuda.device_count()
+            if n < args.cam_shards:
+                raise ValueError(f"--cam-shards {args.cam_shards} needs as "
+                                 f"many CUDA devices, have {n}")
+            devices = [torch.device("cuda", i)
+                       for i in range(args.cam_shards)]
+        mesh = mesh_lib.make_mesh({"cam": args.cam_shards}, devices=devices)
+        device = None               # the engine's device is the mesh's
     engine = Engine(rig, cfg, source, link,
-                    artifacts_dir=args.artifacts_dir, device=device)
+                    artifacts_dir=args.artifacts_dir, device=device,
+                    mesh=mesh)
     if args.calibration:
         calib = artifacts.load_calibration(args.calibration)
         engine.set_camera_poses(calib.Rs, calib.ts)

@@ -355,3 +355,192 @@ def test_two_traces_in_a_row_both_list_the_kernels(dev, tmp_path):
             events = json.load(f)["traceEvents"]
         assert any(e.get("cat") == "kernel"
                    and "kalman_bank" in str(e.get("name")) for e in events)
+
+
+@pytest.mark.parametrize("C,d", [(4, 2), (4, 4), (6, 2), (3, 3), (16, 4)])
+def test_sharded_detection_matches_the_full_launch(dev, C, d):
+    """The camera-sharded step detects each shard's C/d cameras in a launch
+    of its own (odd C/d included); gathered in camera order, the blobs
+    equal one launch over all C cameras and the plain detector, bit for
+    bit.  The shards share the one card, as chip_smoke.py lays them out."""
+    from low_cost_mocap_tpu_torch.config import EngineConfig
+    from low_cost_mocap_tpu_torch.parallel import mesh as mesh_lib
+    from low_cost_mocap_tpu_torch.parallel.dist_pipeline import gather_blobs
+
+    cfg = EngineConfig()
+    frames = torch.from_numpy(
+        (_frames(C, C, 320, 320, cfg.cc_iters) * 255).astype(np.uint8))
+    mesh = mesh_lib.make_mesh({"cam": d}, devices=[dev] * d)
+    n0 = detect_cuda.launches
+    got = gather_blobs(mesh, frames, cfg)
+    assert detect_cuda.launches - n0 == d
+    f = frames.to(dev).to(torch.float32) * (1.0 / 255.0)
+    full = detect_cuda.find_blobs(f, cfg.detect_threshold, cfg.max_blobs,
+                                  cfg.cc_iters)
+    plain = detect.find_blobs_multi(f, cfg.detect_threshold, cfg.max_blobs,
+                                    cfg.cc_iters)
+    for want in (full, plain):
+        assert torch.equal(got[..., :2], want[0])
+        assert torch.equal(got[..., 2] > 0.5, want[1])
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_sharded_step_on_the_card_matches_the_single_device_step(dev, d):
+    """dist_frame_step and dist_scan_frame_step with every shard on the
+    card against frame_step and the batched tail on the same frames."""
+    _check_sharded_step(dev, [dev] * d)
+
+
+def _check_sharded_step(dev, shard_devices):
+    """The sharded steps over a ``cam`` mesh of ``shard_devices`` (the tail
+    on the first) against frame_step and the batched tail on ``dev``."""
+    from low_cost_mocap_tpu_torch.config import EngineConfig
+    from low_cost_mocap_tpu_torch.models import pipeline
+    from low_cost_mocap_tpu_torch.ops import camera
+    from low_cost_mocap_tpu_torch.ops.correspond import \
+        _pairwise_fundamentals
+    from low_cost_mocap_tpu_torch.parallel import mesh as mesh_lib
+    from low_cost_mocap_tpu_torch.parallel.dist_pipeline import (
+        dist_frame_step, dist_scan_frame_step)
+    from low_cost_mocap_tpu_torch.utils import synthetic as syn
+
+    Rs, ts, rig = syn.ring_rig(num_cameras=4)
+    cfg = EngineConfig()
+    frames = []
+    for t in range(6):
+        pos = np.array([0.3 * np.cos(t / 9), 0.3 * np.sin(t / 9), 0.6],
+                       np.float32)
+        pts, mask = syn.observe(syn.drone_markers(pos, 0.0, rig), Rs, ts,
+                                rig)
+        frames.append(syn.render_frames(pts, mask, rig.image_size, sigma=0.8))
+    frames = torch.from_numpy((np.stack(frames) * 255).astype(np.uint8))
+    K = torch.as_tensor(rig.K_stack(), device=dev)
+    Ps = camera.projection_matrix(K, torch.as_tensor(Rs, device=dev),
+                                  torch.as_tensor(ts, device=dev))
+    cal = (Ps, K, torch.as_tensor(rig.dist_stack(), device=dev),
+           torch.eye(4, device=dev), _pairwise_fundamentals(Ps))
+    mesh = mesh_lib.make_mesh({"cam": len(shard_devices)},
+                              devices=shard_devices)
+    kw = dict(threshold=cfg.detect_threshold, max_blobs=cfg.max_blobs,
+              cc_iters=cfg.cc_iters, gate_px=cfg.epipolar_gate_px,
+              max_candidates=cfg.max_candidates_per_cam,
+              marker_dist1=rig.marker_dist_short,
+              marker_dist2=rig.marker_dist_long,
+              marker_tol=rig.marker_dist_tol,
+              marker_side_min=rig.marker_side_min, do_preprocess=False,
+              with_obs=True)
+    st_a = pipeline.make_init_state(rig, device=dev)
+    st_b = pipeline.make_init_state(rig, device=dev)
+    rows = []
+    for f in frames:
+        st_a, out = pipeline.frame_step(st_a, f.to(dev), np.float32(1 / 60),
+                                        *cal, **kw)
+        rows.append(pipeline.pack_outputs(out))
+        st_b, row = dist_frame_step(mesh, st_b, f, np.float32(1 / 60), *cal,
+                                    rig, cfg, with_obs=True, pack=True)
+        assert torch.equal(row, rows[-1])
+    _, batched = dist_scan_frame_step(
+        mesh, pipeline.make_init_state(rig, device=dev), frames,
+        np.full(6, 1 / 60, np.float32), *cal, rig, cfg, with_obs=True)
+    assert torch.equal(batched, torch.stack(rows))
+
+
+# Several cards: a shard whose card is not the current device.  These skip
+# below two cards.
+
+@pytest.fixture
+def cards():
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        pytest.skip("needs two CUDA cards")
+    torch.cuda.set_device(0)
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def test_kernels_launch_on_a_card_that_is_not_current(cards):
+    """Both wrappers on tensors of a card other than the current device:
+    each kernel runs on its tensors' card, bitwise equal to its plain
+    version there, and the current device stays as it was."""
+    other = cards[-1]
+    frames = torch.from_numpy(_frames(11, 4, 320, 320, 24)).to(other)
+    got = _check_detect(frames, 8, 24)
+    assert all(g.device == other for g in got)
+    case = [torch.from_numpy(a).to(other) for a in _bank_case(5, 40, 33, 3)]
+    _check_bank(other, case, 3)
+    assert torch.cuda.current_device() == 0
+
+
+def test_sharded_step_across_cards_matches_one_card(cards):
+    """The sharded steps with each shard on its own card (the tail on the
+    first), as ``make_mesh``'s default and ``serve --cam-shards`` lay them
+    out, against the single-card steps."""
+    d = 4 if len(cards) >= 4 else 2
+    _check_sharded_step(cards[0], cards[:d])
+
+
+@pytest.mark.parametrize("first", [0, 1])
+@pytest.mark.parametrize("batch", [1, 4])
+def test_cam_shards_engine_across_cards_matches_one_card(cards, tmp_path,
+                                                         batch, first):
+    """``serve --cam-shards d`` lays the mesh on the first d cards; an
+    Engine on that mesh, or on d cards from ``cuda:first`` on (its tail
+    then on a card that is not current), serves, per frame and batched,
+    payloads bitwise equal to a single-card device-detect engine's."""
+    from low_cost_mocap_tpu_torch import serve
+    from low_cost_mocap_tpu_torch.config import EngineConfig
+    from low_cost_mocap_tpu_torch.parallel import mesh as mesh_lib
+    from low_cost_mocap_tpu_torch.runtime.engine import Engine
+    from low_cost_mocap_tpu_torch.runtime.serial_link import CollectingLink
+    from low_cost_mocap_tpu_torch.runtime.sources import SyntheticSource
+    from low_cost_mocap_tpu_torch.utils import synthetic as syn
+
+    d = 4 if len(cards) >= 4 else 2
+    built, *_ = serve.build(serve.parse_args(
+        ["--cam-shards", str(d), "--artifacts-dir", str(tmp_path)]))
+    assert list(built._mesh.devices.flat) == cards[:d]
+    assert built.device == cards[0]
+    mesh = (built._mesh if first == 0 else mesh_lib.make_mesh(
+        {"cam": d}, devices=(cards[first:] + cards[:first])[:d]))
+
+    Rs, ts, rig = syn.ring_rig(num_cameras=4)
+    src = SyntheticSource(rig, Rs, ts, num_drones=2, headings=(0.0, np.pi))
+    frames = [src.read_at(i / 60) for i in range(12)]
+
+    def engine(cfg, **kw):
+        e = Engine(rig, cfg, src, CollectingLink(), **kw)
+        e.set_camera_poses(Rs, ts)
+        e.is_capturing_points = True
+        e.is_triangulating_points = True
+        e.is_locating_objects = True
+        got = []
+        e.on("object-points", got.append)
+        for f in frames:
+            e.process_frame(f, 1 / 60)
+        e.flush_batches()
+        return got
+
+    want = engine(EngineConfig(), device=cards[0], host_detect=False)
+    got = engine(EngineConfig(dispatch_batch=batch), mesh=mesh)
+    assert torch.cuda.current_device() == 0
+    assert len(got) == len(want) == len(frames)
+    for a, b in zip(got, want):
+        assert a["object_points"] == b["object_points"]
+        assert a["filtered_objects"] == b["filtered_objects"]
+    assert want[-1]["filtered_objects"]
+
+
+def test_two_nccl_ranks_on_two_cards():
+    """Two NCCL ranks, each on its own card (rank r on ``cuda:r``), for the
+    camera-sharded live step and the Schur solver: both ranks report the
+    same result, equal to one process holding the same two shards."""
+    from low_cost_mocap_tpu_torch.parallel.multiprocess import run_cluster
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    kw = dict(device="cuda", backend="nccl", timeout_s=300)
+    for solver, keys in (("live-pipeline", ("rows_sha", "tracked_pos")),
+                         ("schur", ("cost", "ts"))):
+        one = run_cluster(1, 2, solver=solver, **kw)[0]
+        two = run_cluster(2, 1, solver=solver, **kw)
+        for key in keys:
+            assert two[0][key] == two[1][key] == one[key], (solver, key)

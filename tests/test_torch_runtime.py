@@ -407,9 +407,12 @@ def test_unported_and_unknown_events_and_options_raise():
         eng.handle("capture-profile", {"durationMs": "soon"})
     with pytest.raises(KeyError, match="bogus"):
         eng.handle("bogus", {})
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # mesh mode is ported; it serves the engine's own device only
+    from low_cost_mocap_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="first device"):
         Engine(rig, EngineConfig(), src, CollectingLink(), device="cpu",
-               mesh=object())
+               mesh=make_mesh({"cam": 2}, devices=["cuda:0", "cuda:0"]))
     with pytest.raises(ValueError, match="dispatch_batch"):
         Engine(rig, EngineConfig(dispatch_batch=4), src, CollectingLink(),
                device="cpu")

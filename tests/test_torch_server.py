@@ -340,8 +340,13 @@ def test_serve_builds_on_the_card_by_default(monkeypatch, tmp_path):
     assert engine.device.type == "cpu" and engine.camera_poses is not None
     assert engine.cfg.readback_pipeline_depth == serve.READBACK_DEPTH
     assert (tmp_path / "calibration.json").exists()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serve.build(serve.parse_args(["--cam-shards", "2"]), device="cpu")
+    # camera-sharded serving needs the cards, or the CPU when asked
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.build(serve.parse_args(["--cam-shards", "2"]))
+    engine, *_ = serve.build(serve.parse_args(
+        ["--cam-shards", "2", "--artifacts-dir", str(tmp_path)]),
+        device="cpu")
+    assert engine._mesh.shape == {"cam": 2} and engine.device.type == "cpu"
     # the body options are ported: a one-marker template is refused
     with pytest.raises(ValueError, match=">= 3 markers"):
         serve.build(serve.parse_args(["--body-markers", "[[0,0,0]]",
