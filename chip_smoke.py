@@ -224,6 +224,15 @@ SMOOTH_EDGE = 40           # [14d] frames at each end not held to SMOOTH_ATOL
 SMOOTH_ATOL = 1e-4
 TIME_SHARDS = 4            # [14d]
 CLUSTER_TIMEOUT_S = 300    # [14e] each run_cluster call
+COMPILED_FRAMES = 200      # [15] frames of each per-frame kind, every rig
+COMPILED_BATCHES = 2       # [15] batches of BATCH, the first one a warm-up
+OVERFLOW_EVERY = 10        # [15] every 10th device-detect frame is lit past
+#                            the sparse budget: the packed step serves it
+OVERFLOW_PX = 60           # [15] ... by a 60x60 lit square in camera 0
+CAL_FRAMES = 20            # [15] frames on the true, perturbed, true poses
+PIPE_FRAMES = 30           # [15] MocapPipeline.step frames
+HOST_LAUNCHES_MAX = 4      # [15] kernel and graph launches a graphed frame
+LAUNCH_FRAMES = 10         # [15] graphed frames profiled for them
 # H100 SXM peaks (NVIDIA's data sheet, at the full 700 W): device memory
 # 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, used for both
 # kernels' scalar work (float32 in the bank, int32 min/select in detection)
@@ -520,23 +529,47 @@ def serving_engine(rig, cfg, Rs, ts, src, **kw):
     return eng, payloads
 
 
+def warm_up_batched(eng, frames, Rs, ts, payloads):
+    """Serve one batch through a batched engine (its graphs' capture),
+    then start tracking afresh, its payloads dropped: the timed batches
+    that follow are steady-state."""
+    for f in frames[:BATCH]:
+        eng.process_frame(f, 1 / 60)
+    eng.handle("triangulate-points", {"startOrStop": "stop"})
+    start_tracking(eng, Rs, ts)
+    payloads.clear()
+
+
 def reset_launches():
     from low_cost_mocap_tpu_torch.ops import detect_cuda, kalman_cuda
+    from low_cost_mocap_tpu_torch.runtime import compiled
 
     detect_cuda.launches = 0
     kalman_cuda.launches = 0
+    compiled.replays = 0
+    for k in compiled.warmup_launches:
+        compiled.warmup_launches[k] = 0
 
 
 def read_launches(path, want_detect, want_bank):
     """Hold a path's launches to what it must launch (``want_bank`` None:
-    at least one); returns (detect, bank)."""
+    at least one); returns (detect, bank).  A compiled step's replays count
+    the launches its graph holds; the launches of its warm-up calls (at its
+    capture, on a scratch state) are printed and held apart."""
     from low_cost_mocap_tpu_torch.ops import detect_cuda, kalman_cuda
+    from low_cost_mocap_tpu_torch.runtime import compiled
 
-    got = (detect_cuda.launches, kalman_cuda.launches)
+    warm = (compiled.warmup_launches[detect_cuda.NAME],
+            compiled.warmup_launches[kalman_cuda.NAME])
+    got = (detect_cuda.launches - warm[0], kalman_cuda.launches - warm[1])
     ok = got[0] == want_detect and (got[1] >= 1 if want_bank is None
                                     else got[1] == want_bank)
     check(ok, f"{path}: launches (detect_blobs, kalman_bank) = {got}, "
           f"want ({want_detect}, {want_bank or '>= 1'})")
+    if any(warm):
+        print(f"    {path}: {compiled.replays} graph replays; warm-up "
+              f"launches before captures (detect_blobs, kalman_bank) "
+              f"{warm}")
     return got
 
 
@@ -667,11 +700,7 @@ def phase_batched_engine(rig, cfg, Rs, ts, src):
                         ("emit worker", dict(batch_emit_thread=True))):
         bcfg = dataclasses.replace(cfg, dispatch_batch=BATCH, **extra)
         eng, payloads = serving_engine(rig, bcfg, Rs, ts, src)
-        for f in frames[:BATCH]:
-            eng.process_frame(f, 1 / 60)
-        eng.handle("triangulate-points", {"startOrStop": "stop"})
-        start_tracking(eng, Rs, ts)
-        payloads.clear()
+        warm_up_batched(eng, frames, Rs, ts, payloads)
         eng.timer = StageTimer()     # time the served batches only
         reset_launches()
         with GcPauses() as gcp:
@@ -1148,10 +1177,17 @@ def phase_times(rig, cfg, frames_np, batch, launches, errs):
     ]}
 
 
+# the host's launch calls, as the profiler names them
+KERNEL_LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                      "cuLaunchKernel", "cuLaunchKernelEx")
+GRAPH_LAUNCH_APIS = ("cudaGraphLaunch", "cuGraphLaunch")
+
+
 def profile_frames(run, n):
     """Device work of ``run`` (which serves ``n`` frames) under
-    ``torch.profiler``: (busy ms, kernels, host<->device copies) per frame
-    and the device events."""
+    ``torch.profiler``: (busy ms, kernels, host<->device copies) per frame,
+    the device events, and the host's kernel launches and graph launches
+    per frame."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1159,22 +1195,26 @@ def profile_frames(run, n):
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    dev_ev = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    dev_ev = [e for e in events
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev_ev) / 1e3 / n
     kernels = sum(e.count for e in dev_ev if "emcpy" not in e.key
                   and "emset" not in e.key) / n
     copies = sum(e.count for e in dev_ev if "emcpy" in e.key) / n
-    return busy_ms, kernels, copies, dev_ev
+    host = tuple(sum(e.count for e in events if e.key in apis) / n
+                 for apis in (KERNEL_LAUNCH_APIS, GRAPH_LAUNCH_APIS))
+    return busy_ms, kernels, copies, dev_ev, host
 
 
 def print_profile(tag, prof, wall_ms, n, top=8):
-    busy_ms, kernels, copies, dev_ev = prof
+    busy_ms, kernels, copies, dev_ev, host = prof
     idle = 1 - busy_ms / wall_ms
     print(f"{tag} device busy {busy_ms:.3f} ms per frame against "
           f"{wall_ms:.3f} ms per frame unprofiled (idle share {idle:.3f}); "
           f"{kernels:.1f} kernels and {copies:.1f} host<->device copies per "
-          "frame")
+          f"frame; the host launched {host[0]:.1f} kernels and {host[1]:.1f} "
+          "graphs per frame")
     for e in sorted(dev_ev, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {e.self_device_time_total / 1e3 / n:8.4f} ms/frame "
               f"{e.count / n:6.1f}x  {e.key[:90]}")
@@ -2028,7 +2068,8 @@ def phase_bodies(rig, cfg, Rs, ts):
     """[10a] The body rig (16 blob slots; TMPL_A with two instances and
     TMPL_B with one: I = 3 body slots, M = 64 bank candidates) served
     through ``Engine`` on the card: BODY_FRAMES frames per frame, then
-    BODY_BATCHES batches of BATCH, batched payloads bitwise equal to the
+    BODY_BATCHES batches of BATCH after a warm-up batch (the graphs'
+    capture), batched payloads bitwise equal to the
     per-frame ones; the card's body stage against the CPU's; the bank
     kernel at M = 64 against its plain chain; fits and tracks against the
     truth; rates, idle share and kernels a frame with and without bodies.
@@ -2065,6 +2106,7 @@ def phase_bodies(rig, cfg, Rs, ts):
 
     bat, bpl = serving_engine(brig, dataclasses.replace(
         bcfg, dispatch_batch=BATCH), Rs, ts, None)
+    warm_up_batched(bat, frames, Rs, ts, bpl)
     reset_launches()
     with GcPauses():
         t0 = time.perf_counter()
@@ -2456,7 +2498,8 @@ def phase_large_rig(cfg):
     """[11] The 16-camera ring (``EngineConfig`` defaults: K = 8, auto mode,
     which is the assoc matcher; the bank sees M = 128 candidates), two
     drones on the script's orbit: the Engine per frame with host detection
-    and batched at B = BATCH, batched payloads bitwise equal to per-frame
+    and batched at B = BATCH (after a warm-up batch), batched payloads
+    bitwise equal to per-frame
     ones and tracked against the truth; the card's rows against the port
     on the CPU on the same blobs; the bank at M = 128 against its plain
     chain; ``mode="beam"`` on one frame set, the card against the CPU.
@@ -2492,6 +2535,7 @@ def phase_large_rig(cfg):
     fps = (LARGE_FRAMES - WARM_FRAMES) / (stamps[-1] - stamps[WARM_FRAMES])
     bat, bpl = serving_engine(rig, dataclasses.replace(
         cfg, dispatch_batch=BATCH), Rs, ts, src)
+    warm_up_batched(bat, frames, Rs, ts, bpl)
     reset_launches()
     with GcPauses():
         t0 = time.perf_counter()
@@ -3317,6 +3361,349 @@ def phase_cluster():
     print(f"[14e] took {time.perf_counter() - t_all:.1f} s")
     return walls
 
+
+def bits_equal(a, b) -> bool:
+    """Float32 rows equal bit for bit (NaN and inf included)."""
+    a = np.ascontiguousarray(a, np.float32)
+    b = np.ascontiguousarray(b, np.float32)
+    return a.shape == b.shape and np.array_equal(a.view(np.uint32),
+                                                 b.view(np.uint32))
+
+
+class EagerStep:
+    """A compiled step called op by op (``CompiledStep.eager``: the step's
+    function over the same buffers): [15]'s reference and the eager side
+    of its rates."""
+
+    def __init__(self, step):
+        self.step, self.state, self.args = step, step.state, step.args
+
+    def __call__(self, state, *args):
+        return self.step.eager(state, *args)
+
+
+def eager(eng):
+    """``eng`` with its compiled steps, and those a rebuild makes, called
+    op by op."""
+    from low_cost_mocap_tpu_torch.runtime.compiled import CompiledStep
+
+    build = eng._build_steps
+
+    def eager_steps():
+        steps = build()
+        for k, st in steps.items():
+            if isinstance(st, CompiledStep):
+                steps[k] = EagerStep(st)
+            else:                       # the batched program's two steps
+                st.head = EagerStep(st.head)
+                if st.body is not None:
+                    st.body = EagerStep(st.body)
+        return steps
+
+    eng._build_steps = eager_steps
+    eng._steps = eager_steps()
+    return eng
+
+
+def graph_steps(eng):
+    """The compiled steps of ``eng`` that were captured."""
+    out = []
+    for st in eng._steps.values():
+        out += list(getattr(st, "steps", (st,)))
+    return [s for s in out if getattr(s, "graph", None) is not None]
+
+
+def graph_vs_eager(tag, make, frames, want_detect, want_bank, restart=None):
+    """Serve ``frames`` through a graph engine and an eager one (``make``
+    builds a tracking engine), graph first: rows bitwise equal, the graph
+    run's launches held to (``want_detect``, ``want_bank``).  Per frame the
+    first WARM_FRAMES are left out of the rate; a batched engine
+    (``restart`` given) serves one batch first (the graph's capture, the
+    eager step's first allocations), then restarts tracking.  Returns
+    ({"graph", "eager"}: frames/s, the graph engine, its launches)."""
+    fps, rows, launches = {}, {}, None
+    for name in ("graph", "eager"):
+        eng = make() if name == "graph" else eager(make())
+        if restart is not None:
+            serve_all(eng, frames[:BATCH])()
+            restart(eng)
+        got = capture_rows(eng)
+        reset_launches()
+        fps[name] = timed_serve(eng, frames,
+                                0 if restart is not None else WARM_FRAMES)
+        if name == "graph":
+            launches = read_launches(f"{tag} graph", want_detect, want_bank)
+            g = eng
+        rows[name] = np.concatenate(got)
+    check(len(rows["graph"]) == len(frames)
+          and bits_equal(rows["graph"], rows["eager"]),
+          f"{tag}: the graph's rows differ from the eager step's")
+    return fps, g, launches
+
+
+def compiled_calibration(rig, cfg, Rs, ts, src):
+    """set_camera_poses between frames (the true poses, [9c]'s perturbed
+    ones, the true again): the graph's rows bitwise equal to
+    ``track_from_blobs`` called with the same poses' calibration."""
+    import torch
+
+    from low_cost_mocap_tpu_torch.models import pipeline
+
+    n = 3 * CAL_FRAMES
+    frames = [src.read_at(i / 60) for i in range(n)]
+    poses = [(Rs, ts), perturbed_poses(Rs, ts), (Rs, ts)]
+    eng, _ = serving_engine(rig, cfg, Rs, ts, src)
+    rows = capture_rows(eng)
+    for k, (R, t) in enumerate(poses):
+        if k:
+            eng.set_camera_poses(R, t)
+        serve_all(eng, frames[k * CAL_FRAMES:(k + 1) * CAL_FRAMES])()
+    blobs = host_blobs(np.stack(frames), cfg)
+
+    def eager_rows(pose_of_frame):
+        st, out_rows = pipeline.make_init_state(rig, device=DEVICE), []
+        for i, b in enumerate(blobs):
+            cal = calibration(rig, *pose_of_frame(i), DEVICE)
+            b = torch.from_numpy(b).to(DEVICE)
+            st, out = pipeline.track_from_blobs(
+                st, b[..., :2], b[..., 2] > 0.5, np.float32(1 / 60), *cal,
+                **eng._tail_kw)
+            out_rows.append(pipeline.pack_outputs(out).cpu().numpy())
+        return np.stack(out_rows)
+
+    got = np.concatenate(rows)
+    want = eager_rows(lambda i: poses[i // CAL_FRAMES])
+    check(bits_equal(got, want), "[15] calibration: the graph's rows differ "
+          "from the eager step's with the same poses")
+    mid = slice(CAL_FRAMES, 2 * CAL_FRAMES)
+    check(not bits_equal(eager_rows(lambda i: (Rs, ts))[mid], got[mid]),
+          "[15] calibration: the perturbed poses changed no row")
+    return eng
+
+
+def compiled_rebuild(rig, cfg, Rs, ts):
+    """[10b]'s learn-body-template with apply while rows are in flight
+    (readback depth 2), graph and eager: the same template, and after the
+    recapture the rows bitwise equal."""
+    import dataclasses
+
+    bcfg = dataclasses.replace(cfg, max_blobs=16, readback_pipeline_depth=2)
+    scene = BodyScene(rig, Rs, ts, props=("A",), drones=False)
+    frames = [scene.read_at(i / 60)
+              for i in range(LEARN_FRAMES + LEARNED_FRAMES)]
+    res = {}
+    for name in ("graph", "eager"):
+        eng, _ = serving_engine(rig, bcfg, Rs, ts, None)
+        if name == "eager":
+            eager(eng)
+        got = []
+        eng.on("body-template", got.append)
+        rows = capture_rows(eng)
+        eng.handle("learn-body-template", {"startOrStop": "start"})
+        serve_all(eng, frames[:LEARN_FRAMES], flush=False)()
+        before = graph_steps(eng)
+        eng.handle("learn-body-template", {"startOrStop": "stop",
+                                           "apply": True, "maxBodies": 1})
+        n0 = len(rows)
+        serve_all(eng, frames[LEARN_FRAMES:])()
+        res[name] = (got, np.concatenate(rows[n0:]), eng, before)
+    (tg, rg, eng, before), (te, re_, _, _) = res["graph"], res["eager"]
+    check(len(tg) == 1 and tg[0].get("applied") and tg == te,
+          f"[15] rebuild: templates {tg} and {te}")
+    after = graph_steps(eng)
+    check(len(rg) == LEARNED_FRAMES and eng._layout[4] == 1
+          and rg.shape[1] == eng._row_ring.bufs[0].shape[-1]
+          and before and after and not set(map(id, before))
+          & set(map(id, after)),
+          "[15] rebuild: the new layout was not served by new graphs")
+    check(bits_equal(rg, re_), "[15] rebuild: the rows after the recapture "
+          "differ from the eager step's")
+    return eng
+
+
+def compiled_pipeline(rig, cfg, Rs, ts, src):
+    """``MocapPipeline.step`` (dense uint8 frames, blurred and sharpened
+    first) against ``frame_step`` called op by op: outputs bitwise
+    equal."""
+    import torch
+
+    from low_cost_mocap_tpu_torch.models import pipeline
+
+    pipe = pipeline.MocapPipeline(rig, cfg, Rs, ts, device=DEVICE)
+    st = pipe.init_state()
+    st_e = pipeline.make_init_state(rig, device=DEVICE)
+    cal = (pipe.Ps, pipe.K, pipe.dist, pipe.to_world_matrix, pipe.Fs)
+    for i in range(PIPE_FRAMES):
+        f = src.read_at(i / 60)
+        st, out = pipe.step(st, f, np.float32(1 / 60))
+        st_e, out_e = pipeline.frame_step(
+            st_e, torch.from_numpy(f).to(DEVICE), np.float32(1 / 60), *cal,
+            **pipe._kw)
+        check(bits_equal(pipeline.pack_outputs(out).cpu().numpy(),
+                         pipeline.pack_outputs(out_e).cpu().numpy()),
+              f"[15] MocapPipeline.step frame {i} differs from frame_step")
+    check(len(pipe._steps) == 1 and all(
+        s.graph is not None for s in pipe._steps.values()),
+          "[15] MocapPipeline.step was not captured")
+    return list(pipe._steps.values())
+
+
+def compiled_refuses_a_sync():
+    """A step that reads a value back to the host (``float`` of a device
+    tensor) wrapped in ``CompiledStep``: its capture raises."""
+    import torch
+
+    from low_cost_mocap_tpu_torch.runtime.compiled import CompiledStep
+
+    def syncing(state, x):
+        return state * float(x.sum()), x
+
+    step = CompiledStep(syncing, torch.ones(3, device=DEVICE),
+                        torch.ones(3, device=DEVICE), name="syncing")
+    try:
+        step(step.state, torch.ones(3))
+        err = None
+    except RuntimeError as e:
+        err = e
+    check(err is not None and step.graph is None,
+          "[15] a step that syncs was captured")
+    check(float(torch.ones(4, device=DEVICE).sum()) == 4.0,
+          "[15] the card does not work after the refused capture")
+    print(f"[15] a step that reads a value back to the host: its capture "
+          f"raised {type(err).__name__}: {str(err).splitlines()[0][:160]}")
+
+
+def overflow(frames):
+    """Every OVERFLOW_EVERY-th frame set with a lit square in camera 0,
+    past the sparse budget: the packed step takes it."""
+    out = []
+    for i, f in enumerate(frames):
+        if i % OVERFLOW_EVERY == OVERFLOW_EVERY - 1:
+            f = f.copy()
+            f[0, 100:100 + OVERFLOW_PX, 100:100 + OVERFLOW_PX] = 255
+        out.append(f)
+    return out
+
+
+def compiled_cases(rig, cfg, Rs, ts):
+    """[15]'s serving cases: (tag, engine factory, frames, detect and bank
+    launches the graph run must make, restart for a batched engine)."""
+    import dataclasses
+
+    from low_cost_mocap_tpu_torch.runtime.sources import SyntheticSource
+    from low_cost_mocap_tpu_torch.utils import synthetic as syn
+
+    n, n_b = COMPILED_FRAMES, COMPILED_BATCHES * BATCH
+    src = SyntheticSource(rig, Rs, ts, num_drones=2, headings=(0.0, np.pi))
+    frames = [src.read_at(i / 60) for i in range(max(n, n_b))]
+    bcfg = dataclasses.replace(cfg, dispatch_batch=BATCH)
+    brig = dataclasses.replace(rig, body_markers=BODY_TMPL_A, max_bodies=2,
+                               body_sets=((BODY_TMPL_B, 1),))
+    bodycfg = dataclasses.replace(cfg, max_blobs=16)
+    scene = BodyScene(brig, Rs, ts)
+    body_frames = [scene.read_at(i / 60) for i in range(max(n, BATCH))]
+    Rs16, ts16, rig16 = syn.ring_rig(num_cameras=LARGE_CAMERAS,
+                                     image_size=320)
+    src16 = SyntheticSource(rig16, Rs16, ts16, num_drones=2,
+                            headings=(0.0, np.pi))
+    frames16 = [src16.read_at(i / 60) for i in range(max(n, n_b))]
+
+    def engine(r, c, R, t, s, **kw):
+        return lambda: serving_engine(r, c, R, t, s, **kw)[0]
+
+    def restart(R, t):
+        def run(eng):
+            eng.handle("triangulate-points", {"startOrStop": "stop"})
+            start_tracking(eng, R, t)
+        return run
+
+    cases = [
+        ("[4b] drone rig, host blobs", engine(rig, cfg, Rs, ts, src),
+         frames[:n], 0, n, None),
+        ("[4] drone rig, sparse + packed", engine(
+            rig, cfg, Rs, ts, src, host_detect=False), overflow(frames[:n]),
+         n, n, None),
+        ("drone rig, dense", engine(rig, cfg, Rs, ts, src, fast_path=False),
+         frames[:n], n, n, None),
+        ("[4c] drone rig, batched", engine(rig, bcfg, Rs, ts, src),
+         frames[:n_b], 0, COMPILED_BATCHES, restart(Rs, ts)),
+        ("[10a] body rig, host blobs", engine(brig, bodycfg, Rs, ts, None),
+         body_frames[:n], 0, n, None),
+        ("[10a] body rig, batched", engine(brig, dataclasses.replace(
+            bodycfg, dispatch_batch=BATCH), Rs, ts, None),
+         body_frames[:BATCH], 0, 1, restart(Rs, ts)),
+        ("[11] 16 cameras, host blobs", engine(rig16, cfg, Rs16, ts16,
+                                               src16), frames16[:n], 0, n,
+         None),
+        ("[11] 16 cameras, batched", engine(rig16, bcfg, Rs16, ts16, src16),
+         frames16[:n_b], 0, COMPILED_BATCHES, restart(Rs16, ts16)),
+    ]
+    return cases
+
+
+def phase_compiled(rig, cfg, Rs, ts):
+    """[15] The compiled steps (CUDA graphs) against the eager step, on the
+    drone rig (host blobs, sparse with packed frames among them, dense;
+    batched), the body rig and the 16-camera ring (per frame and batched):
+    rows bitwise equal over COMPILED_FRAMES frames a kind and
+    COMPILED_BATCHES batches of BATCH (one on the body rig); graph and
+    eager rates at equal frames; host launches and device kernels a
+    graphed frame; a calibration change and a learn-body-template rebuild;
+    MocapPipeline; each graph's capture time and pool memory.  Returns
+    {path: launches}."""
+    from low_cost_mocap_tpu_torch.runtime.sources import SyntheticSource
+
+    t_all = time.perf_counter()
+    src = SyntheticSource(rig, Rs, ts, num_drones=2, headings=(0.0, np.pi))
+    launches, steps = {}, []
+    for tag, make, fs, want_d, want_k, rst in compiled_cases(rig, cfg, Rs,
+                                                             ts):
+        t0 = time.perf_counter()
+        fps, g, launches[f"[15] {tag}"] = graph_vs_eager(
+            f"[15] {tag}", make, fs, want_d, want_k, rst)
+        kinds = sorted(s.name for s in graph_steps(g))
+        steps += [(tag, s) for s in graph_steps(g)]
+        msg = (f"[15] {tag}: {len(fs)} frames, graph {fps['graph']:.1f} "
+               f"frames/s, eager {fps['eager']:.1f} frames/s "
+               f"({fps['graph'] / fps['eager']:.2f}x), rows bitwise equal; "
+               f"graphs {kinds}")
+        if rst is not None and g._tail_kw["body_sets"]:
+            # a batch of body frames holds over a million kernel records;
+            # [10a] profiles the body rig
+            print(f"{msg} ({time.perf_counter() - t0:.1f} s)")
+            continue
+        m = LAUNCH_FRAMES if rst is None else BATCH
+        prof = profile_frames(serve_all(g, fs[:m], flush=False), m)
+        print(f"{msg}; a frame: {prof[1]:.1f} device kernels, "
+              f"{prof[0]:.3f} ms busy, the host launched {prof[4][0]:.2f} "
+              f"kernels and {prof[4][1]:.2f} graphs "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if rst is None:
+            check(sum(prof[4]) <= HOST_LAUNCHES_MAX and prof[4][1] >= 1,
+                  f"[15] {tag}: the host launched {prof[4]} (kernels, "
+                  f"graphs) a graphed frame")
+    eng = compiled_calibration(rig, cfg, Rs, ts, src)
+    steps += [("calibration", s) for s in graph_steps(eng)]
+    print(f"[15] calibration changed between frames (true, [9c]'s "
+          f"perturbed, true poses, {CAL_FRAMES} frames each): the graph's "
+          "rows bitwise equal to track_from_blobs with the same poses")
+    eng = compiled_rebuild(rig, cfg, Rs, ts)
+    steps += [("rebuild", s) for s in graph_steps(eng)]
+    print(f"[15] learn-body-template with apply at readback depth 2: the "
+          f"same template, new graphs, the {LEARNED_FRAMES} rows after the "
+          "recapture bitwise equal to the eager step's")
+    steps += [("MocapPipeline", s) for s in compiled_pipeline(
+        rig, cfg, Rs, ts, src)]
+    print(f"[15] MocapPipeline.step (dense frames, blur + sharpen) over "
+          f"{PIPE_FRAMES} frames: outputs bitwise equal to frame_step")
+    for tag, s in steps:
+        print(f"    capture {tag} / {s.name}: {s.capture_ms:.1f} ms, pool "
+              f"{s.pool_bytes / 2**20:.1f} MiB, launches a replay "
+              f"(detect_blobs, kalman_bank) {tuple(s.launches_per_replay)}")
+    print(f"[15] took {time.perf_counter() - t_all:.1f} s")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -3402,6 +3789,8 @@ def main() -> None:
     paths.update(temporal_paths)
     phase_cluster()         # other processes: their launches print there
     print(f"[14] took {time.perf_counter() - t14:.1f} s")
+    # [15] the compiled steps against the eager step
+    paths.update(phase_compiled(rig, cfg, Rs, ts))
     det_err = max(det_err, pre_det_err, off_det_err, mesh_det_err)
     bank_err = max(bank_err, bank64_err, bank128_err, off_bank_err,
                    mesh_bank_err)
@@ -3425,6 +3814,8 @@ def main() -> None:
     if opts.compare_with:
         phase_compare(opts.compare_with, frames, args, cands,
                       rig.num_objects)
+    # last: a refused capture must leave the card working
+    compiled_refuses_a_sync()
     print(f"    total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(report))
     print(smi)

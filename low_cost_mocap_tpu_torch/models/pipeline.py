@@ -46,6 +46,7 @@ from low_cost_mocap_tpu_torch.ops import camera as cam_ops
 from low_cost_mocap_tpu_torch.ops import (correspond, detect, detect_cuda,
                                           kalman, kalman_cuda, rigid,
                                           rigid_general, world)
+from low_cost_mocap_tpu_torch.runtime import compiled
 from low_cost_mocap_tpu_torch.utils import tree
 
 
@@ -70,16 +71,26 @@ class FrameOutputs(NamedTuple):
 def pack_outputs(out: FrameOutputs) -> torch.Tensor:
     """Flatten FrameOutputs into one float32 vector per frame — (L,), or
     (B, L) for batched outputs — so a frame's readback is one transfer.
-    The layout is the JAX package's; decode with ``unpack_outputs``."""
-    lead = out.tracked.valid.shape[:-1]
+    The layout is the JAX package's; decode with ``unpack_outputs``.  The
+    body fields come last (``_pack_bodies``)."""
     leaves = [out.blob_px, out.blob_valid, out.object_points,
               out.point_errors, out.point_valid, *out.objects, *out.tracked]
     if out.point_obs is not None:
         leaves += [out.point_obs, out.point_obs_mask]
     if out.bodies is not None:
         leaves += [*out.bodies, *out.tracked_bodies]
+    return _pack(leaves, out.tracked.valid.shape[:-1])
+
+
+def _pack(leaves, lead) -> torch.Tensor:
     return torch.cat([t.to(torch.float32).reshape(*lead, -1)
                       for t in leaves], dim=-1)
+
+
+def _pack_bodies(bodies, tracked_bodies) -> torch.Tensor:
+    """The body fields of one frame's packed row: its last
+    ``row_length`` - ``row_length(num_bodies=0)`` floats."""
+    return _pack([*bodies, *tracked_bodies], ())
 
 
 def _sizes(C: int, K: int, O: int, with_obs: bool, I: int) -> list:
@@ -198,14 +209,40 @@ class MocapPipeline:
             do_preprocess=preprocess_frames,
             body_sets=rig.body_sets_resolved())
 
+        self._state = self._cal = None   # the compiled steps' buffers
+        self._steps = {}                 # (shape, dtype) -> CompiledStep
+
     def init_state(self):
         return make_init_state(self.rig, device=self.device)
 
     def step(self, state, frames, dt):
-        """One frame: (state, (C, H, W) frames, dt) -> (state, outputs)."""
-        frames = torch.as_tensor(frames, device=self.device)
-        return frame_step(state, frames, dt, self.Ps, self.K, self.dist,
-                          self.to_world_matrix, self.Fs, **self._kw)
+        """One frame: (state, (C, H, W) frames, dt) -> (state, outputs).
+
+        The compiled step (``runtime/compiled.py``; a CUDA graph on the
+        card, one per shape and dtype of ``frames``): ``state`` is donated
+        and the state returned is the pipeline's state buffers, which the
+        next step overwrites; the outputs are the caller's.  The
+        calibration tensors at the first step are the steps' buffers:
+        change them in place; an attribute rebound since is copied into
+        them at every step."""
+        frames = torch.as_tensor(frames)
+        key = (tuple(frames.shape), frames.dtype)
+        cal = (self.Ps, self.K, self.dist, self.to_world_matrix, self.Fs)
+        if self._state is None:
+            self._state = tree.tree_map(torch.clone, state)
+            self._cal = cal
+        step = self._steps.get(key)
+        if step is None:
+            step = self._steps[key] = compiled.CompiledStep(
+                self._frame_step, self._state,
+                torch.empty(key[0], dtype=key[1], device=self.device),
+                torch.zeros((), dtype=torch.float32, device=self.device),
+                *self._cal, name=f"MocapPipeline.step{key[0]}")
+        state, out = step(state, frames, dt, *cal)
+        return state, tree.tree_map(torch.clone, out)
+
+    def _frame_step(self, state, frames, dt, *cal):
+        return frame_step(state, frames, dt, *cal, **self._kw)
 
 
 def make_init_state(rig, device=None):
@@ -328,35 +365,60 @@ def scan_track_from_blobs(state, blobs_b, blob_valid_b, dts, Ps, K, dist,
     the bank over the batch in one kernel launch, then (with body
     templates) the body stage frame by frame, as per-frame serving runs it.
 
-    blobs_b: (B, C, K, 2); blob_valid_b: (B, C, K); dts: (B,).
+    blobs_b: (B, C, K, 2); blob_valid_b: (B, C, K); dts: (B,), numbers or
+    a tensor on the blobs' device.
     Returns (state after B frames, packed (B, L) rows).
     """
     body_sets = _resolve_sets(body_template, max_bodies, body_sets)
     if body_sets:
         state, body_states = state
+    dts = torch.as_tensor(dts, dtype=torch.float32, device=blobs_b.device)
+    state, (rows, pts, live) = scan_head(
+        state, blobs_b, blob_valid_b, dts, Ps, K, dist, to_world_matrix, Fs,
+        gate_px=gate_px, max_candidates=max_candidates,
+        marker_dist1=marker_dist1, marker_dist2=marker_dist2,
+        marker_tol=marker_tol, marker_side_min=marker_side_min,
+        with_obs=with_obs, kalman_report=kalman_report,
+        kalman_impl=kalman_impl)
+    if body_sets:
+        per = []
+        for i in range(dts.shape[0]):
+            body_states, row = body_row(body_states, pts[i], live[i], dts[i],
+                                        body_sets=body_sets)
+            per.append(row)
+        rows = torch.cat([rows, torch.stack(per)], dim=-1)
+        state = (state, body_states)
+    return state, rows
+
+
+def scan_head(state, blobs_b, blob_valid_b, dts, Ps, K, dist,
+              to_world_matrix, Fs, *, gate_px: float, max_candidates: int,
+              marker_dist1: float, marker_dist2: float, marker_tol: float,
+              marker_side_min: float, with_obs: bool = False,
+              kalman_report: str = "pre", kalman_impl: str = "auto"):
+    """The batched program up to the body stage: B frames' geometry and the
+    bank over them (one kernel launch).  ``state`` is the KalmanState; dts
+    a (B,) tensor.  Returns (new KalmanState, (packed (B, L0) rows without
+    the body fields, the world points (B, N, 3) and their validity (B, N)
+    that the body stage takes))."""
     geo = _locate_frame(
         blobs_b, blob_valid_b, Ps, K, dist, to_world_matrix, Fs,
         gate_px=gate_px, max_candidates=max_candidates,
         marker_dist1=marker_dist1, marker_dist2=marker_dist2,
         marker_tol=marker_tol, marker_side_min=marker_side_min,
         with_obs=with_obs)
-    dts = torch.as_tensor(dts, dtype=torch.float32, device=blobs_b.device)
     state, tracked = _bank(state, geo[3], dts, kalman_report, kalman_impl)
-    bodies = tracked_bodies = None
-    if body_sets:
-        pts, valid = geo[2], geo[1]["valid"]
-        per = []
-        for i in range(dts.shape[0]):
-            body_states, b, tb = _body_stage(body_states, pts[i], valid[i],
-                                             dts[i], body_sets)
-            per.append((b, tb))
-        bodies = rigid_general.LocatedBodies(
-            *(torch.stack(x) for x in zip(*(b for b, _ in per))))
-        tracked_bodies = body_tracker.TrackedBodies(
-            *(torch.stack(x) for x in zip(*(tb for _, tb in per))))
-        state = (state, body_states)
-    return state, pack_outputs(_batch_outputs(
-        geo[0], blob_valid_b, *geo[1:], tracked, bodies, tracked_bodies))
+    rows = pack_outputs(_batch_outputs(geo[0], blob_valid_b, *geo[1:],
+                                       tracked))
+    return state, (rows, geo[2], geo[1]["valid"])
+
+
+def body_row(body_states, pts, live, dt, *, body_sets):
+    """One frame's body stage (``_body_stage``) -> (new body states, the
+    body fields of its packed row)."""
+    body_states, bodies, tracked = _body_stage(body_states, pts, live, dt,
+                                               body_sets)
+    return body_states, _pack_bodies(bodies, tracked)
 
 
 def track_from_blobs(state, blobs, blob_valid, dt, Ps, K, dist,
@@ -368,7 +430,8 @@ def track_from_blobs(state, blobs, blob_valid, dt, Ps, K, dist,
                      with_obs: bool = False, kalman_report: str = "pre",
                      kalman_impl: str = "auto"):
     """Post-detection tail of one frame: (C, K, 2) blobs -> (new_state,
-    FrameOutputs).  The batched code at B = 1."""
+    FrameOutputs).  The batched code at B = 1.  ``dt``: a number, or a 0-d
+    float32 tensor on the blobs' device."""
     body_sets = _resolve_sets(body_template, max_bodies, body_sets)
     if body_sets:
         state, body_states = state

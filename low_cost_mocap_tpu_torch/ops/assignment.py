@@ -57,5 +57,6 @@ def assign(cost):
     totals = picked[:, 0]
     for i in range(1, N):
         totals = totals + picked[:, i]
-    best = torch.argmin(totals)
-    return perms[best], totals[best]
+    # a (1,) index: a 0-d one reads it back to the host (``Tensor.item``)
+    best = torch.argmin(totals).reshape(1)
+    return perms[best][0], totals[best][0]

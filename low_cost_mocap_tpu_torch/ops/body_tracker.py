@@ -115,9 +115,9 @@ def update(state: BodyTrackState, fit_t, fit_R, fit_rms, fit_valid, dt, *,
         idx = []
         for i in range(I):
             di = torch.where(claimed, float("inf"), d[i])
-            j = torch.argmin(di)
-            ok = state.active[i] & (di[j] < gate_m)
-            idx.append(torch.where(ok, j, -1))
+            j = torch.argmin(di).reshape(1)     # (1,): no host read
+            ok = state.active[i] & (di[j][0] < gate_m)
+            idx.append(torch.where(ok, j[0], -1))
             claimed = claimed | ((ar == j) & ok)
         match_idx = torch.stack(idx).to(torch.int32)
 
@@ -152,11 +152,12 @@ def update(state: BodyTrackState, fit_t, fit_R, fit_rms, fit_valid, dt, *,
         ("pos", new_pos), ("vel", new_vel), ("quat", new_quat),
         ("active", still_active), ("missed", new_missed))}
     for i in range(I):
-        j = torch.argmax(spawnable.to(torch.uint8))
+        # a (1,) index: indexing with a 0-d one reads it back to the host
+        j = torch.argmax(spawnable.to(torch.uint8)).reshape(1)
         do = free[i] & spawnable.any()
-        rows["pos"][i] = torch.where(do, fit_t[j], rows["pos"][i])
+        rows["pos"][i] = torch.where(do, fit_t[j][0], rows["pos"][i])
         rows["vel"][i] = torch.where(do, 0.0, rows["vel"][i])
-        rows["quat"][i] = torch.where(do, meas_q[j], rows["quat"][i])
+        rows["quat"][i] = torch.where(do, meas_q[j][0], rows["quat"][i])
         rows["active"][i] = rows["active"][i] | do
         rows["missed"][i] = torch.where(do, 0, rows["missed"][i]).to(
             torch.int32)

@@ -134,6 +134,19 @@ def _hypothesis_tables(C: int, n_opt: int):
     return onehot, use_tab, self_tab, rc_onehot, rc_of_h
 
 
+@functools.lru_cache(maxsize=32)
+def _hypothesis_tables_on(C: int, n_opt: int, device: torch.device):
+    """``_hypothesis_tables`` on ``device``, built once per (C, n_opt,
+    device): (onehot, self_tab, msk_tab = self | use, rc_onehot, n_later
+    (H,) f32, the later cameras of each hypothesis' root camera).  An
+    upload per call would be a host-to-device copy on every served frame,
+    which a CUDA graph cannot capture."""
+    onehot, use_np, self_np, rc_oh, rc_of_h = _hypothesis_tables(C, n_opt)
+    n_later = (C - 1 - rc_of_h).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (
+        onehot, self_np, self_np | use_np, rc_oh, n_later))
+
+
 def _take(x, idx):
     """x (B, K, H, ...) at idx (B, K) along axis 2 -> (B, K, ...)."""
     shape = idx.shape + (1,) + x.shape[3:]
@@ -220,12 +233,10 @@ def _match_exact(pts, Ps, root_mask, cand_idx, cand_valid, gate_px,
     Bz, C, K, _ = pts.shape
     dev, f32 = pts.device, pts.dtype
     n_opt = max_candidates + 1
-    onehot_np, use_np, self_np, rc_oh_np, rc_of_h = _hypothesis_tables(C, n_opt)
-    onehot = torch.from_numpy(onehot_np).to(dev)                # (H, C, C, R)
-    self_tab = torch.from_numpy(self_np).to(dev)                # (H, C)
-    msk_tab = torch.from_numpy(self_np | use_np).to(dev)        # (H, C)
-    rc_onehot = torch.from_numpy(rc_oh_np).to(dev)              # (C, H)
-    H = onehot_np.shape[0]
+    # (H, C, C, R), (H, C), (H, C), (C, H), (H,)
+    onehot, self_tab, msk_tab, rc_onehot, n_later = _hypothesis_tables_on(
+        C, n_opt, dev)
+    H = onehot.shape[0]
 
     # candidate observations: obs_cand[z, a, k, b, r] = pts[z, b, cand_idx]
     zi = torch.arange(Bz, device=dev)[:, None, None, None, None]
@@ -251,9 +262,8 @@ def _match_exact(pts, Ps, root_mask, cand_idx, cand_valid, gate_px,
 
     # selection score with the per-root-camera miss penalty
     n_vis = msk.sum(dim=-1).to(f32)                             # (B, K, H)
-    n_later = torch.from_numpy(
-        (C - 1 - rc_of_h).astype(np.float32)).to(dev)[None, None]
-    score = torch.where(ok, _selection_score(err, n_vis, n_later, tau2),
+    score = torch.where(ok, _selection_score(err, n_vis,
+                                             n_later[None, None], tau2),
                         _INF)
 
     # per-root-camera winner over each root camera's contiguous slice

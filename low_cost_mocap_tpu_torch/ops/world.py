@@ -22,16 +22,16 @@ from low_cost_mocap_tpu_torch.ops.rotations import hat
 
 def to_world(points, to_world_matrix):
     """points: (..., 3) triangulated points; to_world_matrix: (4, 4)."""
-    flip = torch.tensor([-1.0, -1.0, 1.0], dtype=points.dtype,
-                        device=points.device)
-    p = points * flip
+    # x and y flipped by negation (the bits of a product with -1), and the
+    # components taken by slices: no constant is uploaded, so the
+    # compiled step's CUDA graph can capture it
+    p0, p1, p2 = -points[..., 0:1], -points[..., 1:2], points[..., 2:3]
     M = to_world_matrix.to(points.dtype)
     # M [p; 1] written out: a matmul's kernel, and its summation order,
     # would change with the batch size on the card
-    w = (p[..., 0:1] * M[:, 0] + p[..., 1:2] * M[:, 1] + p[..., 2:3] * M[:, 2]
-         + M[:, 3])
+    w = p0 * M[:, 0] + p1 * M[:, 1] + p2 * M[:, 2] + M[:, 3]
     w = w[..., :3] / w[..., 3:4]
-    return w[..., [0, 2, 1]]
+    return torch.cat([w[..., 0:1], w[..., 2:3], w[..., 1:2]], dim=-1)
 
 
 def _lstsq_min_norm(A, b):

@@ -27,6 +27,15 @@ Ingest paths, chosen at construction (the JAX engine's choice):
   (``parallel/dist_pipeline.py``); with ``dispatch_batch`` = B > 1, one
   ``dist_scan_frame_step`` per B frames.
 
+Every step but the camera-sharded one is compiled (``runtime/compiled.py``,
+the counterpart of the JAX engine's ``_build_steps``): on the card a CUDA
+graph per kind of frame (host blobs, sparse, packed, dense, and the
+batched program), captured at its first frame and replayed at every frame
+(or batch), over static buffers for the payload, ``dt``, the tracker state
+(donated: ``_kalman_state`` is the buffers) and the calibration (changed
+in place by ``set_calibration``); on the CPU the same buffers serve the
+step eagerly.  A capture that fails raises.
+
 Each step's outputs come back as one packed row per frame.  With
 ``readback_pipeline_depth`` = d > 0 the row's copy into a page-locked host
 buffer is issued without blocking, an event is recorded after it, and the
@@ -62,6 +71,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import os
 import tempfile
 import threading
@@ -76,11 +86,10 @@ from low_cost_mocap_tpu_torch.config import (CameraIntrinsics, EngineConfig,
 from low_cost_mocap_tpu_torch.control import bindings
 from low_cost_mocap_tpu_torch.device import resolve_device
 from low_cost_mocap_tpu_torch.models import calibrator
-from low_cost_mocap_tpu_torch.models.pipeline import (frame_step,
+from low_cost_mocap_tpu_torch.models.pipeline import (body_row, frame_step,
                                                       make_init_state,
                                                       pack_outputs,
-                                                      row_length,
-                                                      scan_track_from_blobs,
+                                                      row_length, scan_head,
                                                       tail_kwargs,
                                                       track_from_blobs,
                                                       unpack_outputs_batch)
@@ -95,6 +104,7 @@ from low_cost_mocap_tpu_torch.ops.rigid_general import learn_template
 from low_cost_mocap_tpu_torch.ops.rotations import quat_to_matrix_np
 from low_cost_mocap_tpu_torch.parallel.dist_pipeline import (
     dist_frame_step, dist_scan_frame_step)
+from low_cost_mocap_tpu_torch.runtime import compiled
 from low_cost_mocap_tpu_torch.runtime.health import CameraHealthMonitor
 from low_cost_mocap_tpu_torch.utils import artifacts, profiling
 from low_cost_mocap_tpu_torch.utils.recordings import save_recording
@@ -291,7 +301,8 @@ class Engine:
         self._Ps = torch.eye(3, 4, device=dev).repeat(rig.num_cameras, 1, 1)
         self._F = correspond._pairwise_fundamentals(self._Ps)
         self._F_np = None          # host copy for the epiline overlay
-        self._F_np_src = None
+        self._F_np_src = None      # ... of this calibration version
+        self._cal_version = 0
         self._M = torch.as_tensor(self.to_world_matrix, device=dev)
         self._kalman_state = make_init_state(rig, device=dev)
         if artifacts_dir:
@@ -360,6 +371,49 @@ class Engine:
         self._row_ring = _HostRing(max(cfg.readback_pipeline_depth, 4) + 2,
                                    (self._batch, L) if self._batch > 1
                                    else (L,), self.device)
+        self._steps = self._build_steps()
+
+    def _calibration(self) -> tuple:
+        """The calibration buffers every step reads: (Ps, K, dist, M, F)."""
+        return (self._Ps, self._K, self._dist, self._M, self._F)
+
+    def _build_steps(self) -> dict:
+        """One compiled step for each kind of frame this engine takes, over
+        the tracker state ``_kalman_state`` and the calibration buffers,
+        each captured at its first frame.  The camera-sharded step stays
+        eager (none here): its counterpart runs a graph on every shard's
+        device and the gather between them."""
+        if self._mesh is not None:
+            return {}
+        rig, cfg, dev = self.rig, self.cfg, self.device
+        C, K = rig.num_cameras, cfg.max_blobs
+        H, W = rig.image_hw()
+        state, cal = self._kalman_state, self._calibration()
+
+        def frame_kind(name, payload, **ingest):
+            return compiled.CompiledStep(
+                functools.partial(_frame_row, **self._step_kw, **ingest),
+                state, payload, _f32((), dev), *cal, name=name)
+
+        if self._batch > 1:
+            return {"batched": _ScanStep(
+                state, _f32((self._batch, C, K, 3), dev),
+                _f32((self._batch,), dev), cal, self._tail_kw)}
+        if self._host_detect:
+            return {"blobs": compiled.CompiledStep(
+                functools.partial(_tail_row, **self._tail_kw), state,
+                _f32((C, K, 3), dev), _f32((), dev), *cal, name="blobs")}
+        if self._fast:
+            return {"sparse": frame_kind(
+                        "sparse", torch.zeros(cfg.sparse_budget,
+                                              dtype=torch.int32, device=dev),
+                        sparse_input=True, image_shape=(C, H, W)),
+                    "packed": frame_kind(
+                        "packed", torch.zeros((C, H, W // 8),
+                                              dtype=torch.uint8, device=dev),
+                        packed_input=True)}
+        return {"dense": frame_kind("dense", torch.zeros(
+            (C, H, W), dtype=torch.uint8, device=dev))}
 
     def _apply_rig(self, rig: RigConfig) -> None:
         """Serve ``rig`` (new body templates) from the next frame on: a new
@@ -368,18 +422,22 @@ class Engine:
         the emit worker has already taken decodes with the ring and layout
         it was read with."""
         with self._model_lock:
-            old = self._row_ring
+            old, old_steps = self._row_ring, self._steps
             self.rig = rig
-            self._configure_step()
+            # new state buffers (the body sets change) and new steps over
+            # them, captured at their first frame
             self._kalman_state = make_init_state(rig, device=self.device)
+            self._configure_step()
             self._pending.clear()
             self._batch_pending.clear()
             self._batch_slot = None
             self._batch_dts = []
             # copies into the dropped rows may still be in flight: the old
-            # ring's page-locked buffers must outlive them
+            # ring's page-locked buffers, and the old graphs' rows they
+            # copy, must outlive them
             for i in range(len(old.bufs)):
                 old.wait(i)
+            del old_steps
             self._batch_cond.notify_all()
 
     # ------------------------------------------------------------ events
@@ -439,8 +497,9 @@ class Engine:
                 self.set_to_world_matrix(
                     np.asarray(data["toWorldCoordsMatrix"], np.float32))
             with self._model_lock:
-                self._kalman_state = make_init_state(self.rig,
-                                                     device=self.device)
+                # into the state buffers the compiled steps read
+                compiled.assign(self._kalman_state,
+                                make_init_state(self.rig, device=self.device))
                 self._pending.clear()      # pre-reset in-flight readbacks
                 self._batch_slot = None    # pre-reset buffered frames
                 self._batch_dts = []
@@ -795,17 +854,18 @@ class Engine:
         rig = dataclasses.replace(self.rig, cameras=tuple(cams))
         K_dev = torch.as_tensor(rig.K_stack(), device=self.device)
         dist_dev = torch.as_tensor(rig.dist_stack(), device=self.device)
+        parts = dict(K=K_dev, dist=dist_dev)
+        if self.camera_poses is not None:
+            Rs, ts = self.camera_poses
+            parts["Ps"] = cam_ops.projection_matrix(
+                K_dev, torch.as_tensor(np.asarray(Rs, np.float32),
+                                       device=self.device),
+                torch.as_tensor(np.asarray(ts, np.float32),
+                                device=self.device))
+            parts["F"] = correspond._pairwise_fundamentals(parts["Ps"])
         with self._model_lock:
             self.rig = rig
-            self._K, self._dist = K_dev, dist_dev
-            if self.camera_poses is not None:
-                Rs, ts = self.camera_poses
-                self._Ps = cam_ops.projection_matrix(
-                    K_dev, torch.as_tensor(np.asarray(Rs, np.float32),
-                                           device=self.device),
-                    torch.as_tensor(np.asarray(ts, np.float32),
-                                    device=self.device))
-                self._F = correspond._pairwise_fundamentals(self._Ps)
+            self.set_calibration(**parts)
         self._save_intrinsics_artifact()
 
     def _save_intrinsics_artifact(self) -> None:
@@ -956,7 +1016,7 @@ class Engine:
         F = correspond._pairwise_fundamentals(Ps)
         with self._model_lock:
             self.camera_poses = (Rs, ts)
-            self._Ps, self._F = Ps, F
+            self.set_calibration(Ps=Ps, F=F)
         self._save_calibration_artifact()
 
     def set_to_world_matrix(self, M: np.ndarray) -> None:
@@ -964,8 +1024,21 @@ class Engine:
         M_dev = torch.as_tensor(M, device=self.device)
         with self._model_lock:
             self.to_world_matrix = M
-            self._M = M_dev
+            self.set_calibration(M=M_dev)
         self._save_calibration_artifact()
+
+    def set_calibration(self, *, Ps=None, K=None, dist=None, M=None,
+                        F=None) -> None:
+        """Copy new calibration tensors into the buffers the compiled steps
+        read, in place, on the stream the steps run on, so that the next
+        frame uses them (the caller holds the model lock).  Rebinding the
+        buffers instead would leave a captured graph reading the old
+        ones."""
+        for name, new in (("_Ps", Ps), ("_K", K), ("_dist", dist),
+                          ("_M", M), ("_F", F)):
+            if new is not None:
+                compiled.assign(getattr(self, name), new)
+        self._cal_version += 1
 
     def _save_calibration_artifact(self) -> None:
         """Persist the calibration server-side (the reference keeps the
@@ -1119,14 +1192,6 @@ class Engine:
 
     # -------------------------------------------------------------- frames
 
-    def _upload(self, host: torch.Tensor) -> torch.Tensor:
-        """A host ring buffer's contents on the engine's device: a copy
-        that does not block from page-locked memory, or a plain copy on a
-        CPU engine (never the ring buffer itself)."""
-        if self.device.type == "cuda":
-            return host.to(self.device, non_blocking=True)
-        return host.clone()
-
     def _readback(self, rows: torch.Tensor) -> _Readback:
         """Enqueue the copy of a packed row (or (B, L) rows) into the next
         host slot, with its event after it (under the model lock)."""
@@ -1197,7 +1262,10 @@ class Engine:
         if self._batch > 1:
             return self._run_batched(frames, dt32)
 
-        dev = self.device
+        # the payload stays on the host: the step copies it into its
+        # buffer on the card (from the page-locked ingest ring without
+        # blocking), then replays
+        slot = None
         with self.timer.stage("ingest"):
             if self._mesh is not None:
                 # 1-bit packed on the host; each shard uploads its cameras
@@ -1207,24 +1275,26 @@ class Engine:
             elif self._host_detect:
                 slot = self._ingest_ring.acquire()
                 self._ingest_host_detect(frames, slot)
-                payload = self._upload(self._ingest_ring.bufs[slot])
-                self._ingest_ring.fence(slot)
+                payload = self._ingest_ring.bufs[slot]
                 kind = "blobs"
             elif self._fast:
                 idx, ok, packed = sparse_ingest(
                     frames, self.cfg.detect_threshold, self.cfg.sparse_budget)
                 # the dense 1-bit bitmap is exact when the budget overflows
                 kind = "sparse" if ok else "packed"
-                payload = torch.from_numpy(idx if ok else packed).to(dev)
+                payload = torch.from_numpy(idx if ok else packed)
             else:
                 kind = "dense"
-                payload = torch.from_numpy(np.ascontiguousarray(frames)).to(
-                    dev)
+                payload = torch.from_numpy(np.ascontiguousarray(frames))
 
         with self._model_lock:
             with self.timer.stage("step"):
-                self._kalman_state, out = self._step(kind, payload, dt32)
-                rb = self._readback(pack_outputs(out))
+                self._kalman_state, row = self._step(kind, payload, dt32)
+                if slot is not None:
+                    self._ingest_ring.fence(slot)
+                # the row is the graph's: its copy is enqueued before the
+                # next replay overwrites it
+                rb = self._readback(row)
             depth = self.cfg.readback_pipeline_depth
             if depth > 0:
                 # each row keeps its own frame's dt for the trajectory tick
@@ -1242,33 +1312,26 @@ class Engine:
         return out
 
     def _step(self, kind: str, payload: torch.Tensor, dt32):
-        """One frame's step on the device (under the model lock)."""
-        cal = (self._Ps, self._K, self._dist, self._M, self._F)
+        """One frame's step on the device (under the model lock): (the
+        state, its packed row)."""
+        cal = self._calibration()
         if kind == "mesh":
-            return dist_frame_step(self._mesh, self._kalman_state, payload,
-                                   dt32, *cal, self.rig, self.cfg,
-                                   packed=True, with_obs=True)
-        if kind == "blobs":
-            return track_from_blobs(
-                self._kalman_state, payload[..., :2], payload[..., 2] > 0.5,
-                dt32, *cal, **self._tail_kw)
-        ingest = {"sparse": dict(sparse_input=True,
-                                 image_shape=(self.rig.num_cameras,
-                                              *self.rig.image_hw())),
-                  "packed": dict(packed_input=True),
-                  "dense": {}}[kind]
-        return frame_step(self._kalman_state, payload, dt32, *cal,
-                          **self._step_kw, **ingest)
+            state, out = dist_frame_step(self._mesh, self._kalman_state,
+                                         payload, dt32, *cal, self.rig,
+                                         self.cfg, packed=True, with_obs=True)
+            return state, pack_outputs(out)
+        return self._steps[kind](self._kalman_state, payload, dt32, *cal)
 
     def _run_batched(self, frames: np.ndarray, dt32):
         """Batched dispatch: each frame's host detection goes into slot i
         of a page-locked (B, C, K, 3) buffer (in mesh mode, its packed
         frames into row i of a (B, C, H, W/8) buffer); every
-        ``dispatch_batch`` frames, one upload and one
-        ``scan_track_from_blobs`` (the bank kernel once at B; in mesh mode
-        one ``dist_scan_frame_step``), one (B, L) readback, pipelined like
-        the per-frame rows.  Returns the newest frame's outputs, or None
-        while the batch (or the pipeline) fills."""
+        ``dispatch_batch`` frames, one upload and the compiled batched
+        program (``_ScanStep``: ``scan_track_from_blobs``, the bank kernel
+        once at B; in mesh mode one ``dist_scan_frame_step``), one (B, L)
+        readback, pipelined like the per-frame rows.  Returns the newest
+        frame's outputs, or None while the batch (or the pipeline)
+        fills."""
         with self._model_lock:
             with self.timer.stage("batch-ingest"):
                 i = len(self._batch_dts)
@@ -1286,18 +1349,17 @@ class Engine:
                                                     np.float32)
             self._batch_slot, self._batch_dts = None, []
             with self.timer.stage("batch-dispatch"):
-                cal = (self._Ps, self._K, self._dist, self._M, self._F)
+                cal = self._calibration()
                 if self._mesh is not None:
                     self._kalman_state, rows = dist_scan_frame_step(
                         self._mesh, self._kalman_state,
                         torch.from_numpy(self._mesh_batch), dl, *cal,
                         self.rig, self.cfg, packed=True, with_obs=True)
                 else:
-                    blobs = self._upload(self._ingest_ring.bufs[slot])
+                    self._kalman_state, rows = self._steps["batched"](
+                        self._kalman_state, self._ingest_ring.bufs[slot],
+                        dl, *cal)
                     self._ingest_ring.fence(slot)
-                    self._kalman_state, rows = scan_track_from_blobs(
-                        self._kalman_state, blobs[..., :2],
-                        blobs[..., 2] > 0.5, dl, *cal, **self._tail_kw)
                 # the readback carries the layout of the rows it reads,
                 # the dts go along for the trajectory ticks
                 item = (self._readback(rows), dl)
@@ -1470,11 +1532,11 @@ class Engine:
                     strip[y1 - 1, x0:x1] = 255
                     _draw_text(strip, x + 6, y - 6, f"{bx:.0f},{by:.0f}")
             if self.is_triangulating_points:
-                F = self._F
-                if self._F_np_src is not F:
-                    # one device readback per pose set, not per frame
-                    self._F_np = F.cpu().numpy()
-                    self._F_np_src = F
+                version = self._cal_version
+                if self._F_np_src != version:
+                    # one device readback per calibration, not per frame
+                    self._F_np = self._F.cpu().numpy()
+                    self._F_np_src = version
                 C = frames.shape[0]
                 for b in range(1, C):
                     for a in range(b):
@@ -1537,6 +1599,85 @@ def _draw_epiline(strip: np.ndarray, line, x_off: int, W: int, H: int,
     xi = xs[m].astype(np.intp) + x_off
     yi = ys[m].astype(np.intp)
     strip[yi, xi] = np.maximum(strip[yi, xi], value)
+
+
+def _f32(shape, device) -> torch.Tensor:
+    return torch.zeros(shape, dtype=torch.float32, device=device)
+
+
+def _tail_row(state, payload, dt, *cal, **kw):
+    """The host-detect step: one (C, K, 3) [x, y, valid] frame set through
+    ``track_from_blobs`` -> (state, packed row)."""
+    state, out = track_from_blobs(state, payload[..., :2],
+                                  payload[..., 2] > 0.5, dt, *cal, **kw)
+    return state, pack_outputs(out)
+
+
+def _frame_row(state, payload, dt, *cal, **kw):
+    """The device-detect steps: ``frame_step`` -> (state, packed row)."""
+    state, out = frame_step(state, payload, dt, *cal, **kw)
+    return state, pack_outputs(out)
+
+
+def _scan_rows(state, payload, dts, *cal, **kw):
+    return scan_head(state, payload[..., :2], payload[..., 2] > 0.5, dts,
+                     *cal, **kw)
+
+
+class _ScanStep:
+    """The batched program compiled (the JAX engine's ``_step_scan``):
+    ``scan_track_from_blobs`` over B host-detected frame sets.
+
+    The geometry and the bank over the batch are one compiled step.  With
+    body templates the body stage, which runs frame by frame, is a second
+    one over static per-frame slots (the frame's world points, their
+    validity and its dt), replayed B times after the first: one graph of
+    B body stages would hold about B times 9,300 nodes.  Each frame's body
+    fields are copied into the batch's rows after its replay.  Called with
+    (state, (B, C, K, 3) payload, (B,) dts, *calibration) -> (state, (B, L)
+    rows); ``state`` is donated and the rows are overwritten by the next
+    call."""
+
+    def __init__(self, state, payload, dts, cal, tail_kw):
+        kw = dict(tail_kw)
+        sets = kw.pop("body_sets")
+        self.state = state
+        kstate, body_states = state if sets else (state, None)
+        self.head = compiled.CompiledStep(
+            functools.partial(_scan_rows, **kw), kstate, payload, dts, *cal,
+            name="batched")
+        self.body = self.rows = None
+        if sets:
+            B, C, K, _ = payload.shape
+            dev = payload.device
+            self.body = compiled.CompiledStep(
+                functools.partial(body_row, body_sets=sets), body_states,
+                _f32((C * K, 3), dev),
+                torch.zeros(C * K, dtype=torch.bool, device=dev),
+                _f32((), dev), name="body stage")
+
+    @property
+    def steps(self) -> tuple:
+        return (self.head,) + ((self.body,) if self.body else ())
+
+    def __call__(self, state, payload, dts, *cal):
+        compiled.assign(self.state, state)
+        kstate = self.state[0] if self.body else self.state
+        _, (rows, pts, live) = self.head(kstate, payload, dts, *cal)
+        if self.body is None:
+            return self.state, rows
+        dts_buf = self.head.args[1]
+        B, L0 = rows.shape
+        for i in range(B):
+            # the body step's row is overwritten by its next replay
+            _, row = self.body(self.state[1], pts[i], live[i], dts_buf[i])
+            if self.rows is None:
+                self.rows = torch.empty((B, L0 + row.shape[0]),
+                                        dtype=torch.float32,
+                                        device=rows.device)
+            self.rows[i, L0:].copy_(row)
+        self.rows[:, :L0].copy_(rows)
+        return self.state, self.rows
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:

@@ -26,3 +26,12 @@ def stack(trees):
 def cat(trees):
     """Leaves of a sequence of like trees concatenated along axis 0."""
     return tree_map(lambda *xs: torch.cat(xs), *trees)
+
+
+def leaves(tree) -> list:
+    """The tensor leaves of a tree, in order (None leaves dropped)."""
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for sub in tree for t in leaves(sub)]
