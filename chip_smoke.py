@@ -35,7 +35,9 @@ cc_iters 24, 2 candidates per camera, 2 drones, batches of 128:
    detection kernel found, against 128 per-frame ``track_from_blobs`` rows;
 6. times beside each kernel's bound: the event window (CUDA events around
    the wrapper, median of 20 calls) and the device time (``torch.profiler``,
-   every kernel, memset and copy of 20 calls);
+   every kernel, memset and copy of 20 calls, each launch's record held),
+   measured in a process of its own: the profiler keeps fewer of a short
+   session's records the older the process is;
 7. where a served frame's time goes, for detection on the card and on the
    host: each stage timed alone, then device busy time, kernels and copies
    per frame under ``torch.profiler``, and the idle share of each serving
@@ -91,7 +93,17 @@ cc_iters 24, 2 candidates per camera, 2 drones, batches of 128:
    ``smooth_reference`` away from the edges; [14e] ``run_cluster``: two
    gloo ranks on the card for live-pipeline, batched-sharded and schur,
    equal to each other and to one process, and one NCCL rank (the
-   clusters in two waves, side by side within a wave).
+   clusters in two waves, side by side within a wave);
+15. the compiled steps (CUDA graphs) against the same steps op by op;
+16. the camera-sharded steps and offline processing as graphs: [16a] the
+   drone rig at cam = 2 and 4 on the one card per frame and batched, [16b]
+   the 16-camera ring at cam = 4 batched, each graph engine against the
+   same engine op by op on the same frames (rows bitwise equal, frames/s,
+   busy ms and idle share, host launches a frame, capture ms and pool MiB
+   a graph); [16c] ``process_recording`` (frames; host blobs with
+   ``smooth``; body sets with ``smooth``) and ``stream_recording`` on
+   [12]'s recordings against ``compiled.disable_graphs()``, then cold
+   calls at a fresh length, captures included, not slower than eager.
 
 [9b] also sends ``acquire-floor`` with two points and with collinear
 points: the installed matrix is finite and the CPU port's.
@@ -114,6 +126,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -225,6 +238,8 @@ SMOOTH_ATOL = 1e-4
 TIME_SHARDS = 4            # [14d]
 CLUSTER_TIMEOUT_S = 300    # [14e] each run_cluster call
 COMPILED_FRAMES = 200      # [15] frames of each per-frame kind, every rig
+MESH_GRAPH_FRAMES = 100    # [16a] per-frame frames after the first 20
+OFFLINE_COLD = 1487        # [16c] a recording length no call has had
 COMPILED_BATCHES = 2       # [15] batches of BATCH, the first one a warm-up
 OVERFLOW_EVERY = 10        # [15] every 10th device-detect frame is lit past
 #                            the sparse budget: the packed step serves it
@@ -449,7 +464,7 @@ def phase_bank():
     case = [torch.from_numpy(a).to(DEVICE) for a in bank_case(BATCH)]
     st = kalman.init_state(2, device=DEVICE)
     dev = [device_ms(lambda: kalman_cuda.kalman_scan(
-        st, *(a[:B] for a in case)))[0] for B in (BATCH, 1)]
+        st, *(a[:B] for a in case)), "kalman_bank")[0] for B in (BATCH, 1)]
     print(f"[3] kalman_bank device time before any serving "
           f"(torch.profiler, {TIMING_RUNS} calls): B={BATCH} {dev[0]:.4f} "
           f"ms, B=1 {dev[1]:.4f} ms")
@@ -522,7 +537,7 @@ def serving_engine(rig, cfg, Rs, ts, src, **kw):
     from low_cost_mocap_tpu_torch.runtime.engine import Engine
     from low_cost_mocap_tpu_torch.runtime.serial_link import CollectingLink
 
-    eng = Engine(rig, cfg, src, CollectingLink(), device=DEVICE, **kw)
+    eng = Engine(rig, cfg, src, CollectingLink(), **{"device": DEVICE, **kw})
     payloads = []
     eng.on("object-points", payloads.append)
     start_tracking(eng, Rs, ts)
@@ -1061,10 +1076,17 @@ def bank_bound(case_valid, case_index, B, M, O):
         else "bytes"
 
 
-def device_ms(fn, runs=TIMING_RUNS):
+def device_ms(fn, kernel, runs=TIMING_RUNS):
     """Device time of one call of ``fn`` under ``torch.profiler``: every
     kernel, memset and copy it puts on the card, summed over ``runs``
-    calls and divided by ``runs``.  Returns (ms, {name: ms per call})."""
+    calls and divided by ``runs``.  Returns (ms, {name: ms per call}).
+
+    ``fn`` launches the kernel whose name holds ``kernel`` once a call: a
+    session without a record of each of those launches fails.  The
+    profiler keeps fewer of a short session's kernel records the older the
+    process is, threads or no threads (an idle process keeps none after
+    about 80 s: ``utils/profiler_probe.py drift``), so ``kernel_times``
+    runs in a process of its own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1075,29 +1097,64 @@ def device_ms(fn, runs=TIMING_RUNS):
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    per = {e.key[:60]: e.self_device_time_total / 1e3 / runs
-           for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA}
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    got = sum(e.count for e in dev if kernel in e.key)
+    check(got == runs, f"torch.profiler recorded {got} of the {runs} "
+          f"launches of {kernel}: the session lost kernel records")
+    per = {e.key[:60]: e.self_device_time_total / 1e3 / runs for e in dev}
     return sum(per.values()), per
 
 
 def kernel_times(frames, args, cands, num_objects):
     """Event-window ms (``cuda_ms``) and device ms (``device_ms``) of the
     two kernels' wrappers at the main path's shapes: detection on
-    ``frames``, the bank on ``cands`` at B = len(cands[0]) and at B = 1."""
+    ``frames``, the bank on ``cands`` at B = len(cands[0]) and at B = 1.
+    The profiler sessions come first, while the process is young."""
     from low_cost_mocap_tpu_torch.ops import detect_cuda, kalman, kalman_cuda
 
     st = kalman.init_state(num_objects, device=DEVICE)
     one = tuple(c[:1] for c in cands)
-    calls = {"detect_blobs": lambda: detect_cuda.find_blobs(frames, *args),
-             f"kalman_bank B={len(cands[0])}":
-                 lambda: kalman_cuda.kalman_scan(st, *cands),
-             "kalman_bank B=1": lambda: kalman_cuda.kalman_scan(st, *one)}
-    out = {}
-    for name, fn in calls.items():
-        dev, per = device_ms(fn)
-        out[name] = {"ms": cuda_ms(fn), "device_ms": dev, "device": per}
-    return out
+    calls = {"detect_blobs": (lambda: detect_cuda.find_blobs(frames, *args),
+                              "propagate_kernel"),
+             f"kalman_bank B={len(cands[0])}": (
+                 lambda: kalman_cuda.kalman_scan(st, *cands), "kalman_bank"),
+             "kalman_bank B=1": (lambda: kalman_cuda.kalman_scan(st, *one),
+                                 "kalman_bank")}
+    dev = {name: device_ms(fn, kernel)
+           for name, (fn, kernel) in calls.items()}
+    return {name: {"ms": cuda_ms(fn), "device_ms": dev[name][0],
+                   "device": dev[name][1]}
+            for name, (fn, _) in calls.items()}
+
+
+def timing_process(root, frames, args, cands, num_objects, rates=False):
+    """``kernel_times`` (and with ``rates`` ``serve_rates``) of the checkout
+    at ``root`` in a process of its own, on these inputs: the parsed
+    ``TIMES`` line."""
+    import tempfile
+
+    import torch
+
+    script = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "inputs.pt")
+        torch.save({"frames": frames.cpu(), "args": list(args),
+                    "cands": [c.cpu() for c in cands], "O": num_objects,
+                    "rates": rates}, path)
+        code = (f"import runpy, sys; sys.argv = [{script!r}, "
+                f"'--time-kernels', {path!r}]; "
+                f"runpy.run_path({script!r}, run_name='__main__')")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                              capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0,
+          f"timing run in {root} failed:\n{proc.stderr[-3000:]}")
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("TIMES ")][-1]
+    res = json.loads(line[len("TIMES "):])
+    check(res["package"].startswith(os.path.abspath(root)),
+          f"timing run in {root} imported {res['package']}")
+    return res
 
 
 def print_kernel_times(tag, times):
@@ -1125,7 +1182,14 @@ def phase_times(rig, cfg, frames_np, batch, launches, errs):
     loc = geo[3]
     st = kalman.init_state(rig.num_objects, device=DEVICE)
     cands = (loc.pos, loc.heading, loc.index, loc.valid, dts)
-    times = kernel_times(frames, args, cands, rig.num_objects)
+    # in a young process: this one's profiler loses short sessions' records
+    # (with no thread but this one alive: the engines have stopped theirs)
+    print(f"[6] threads alive: {sorted(t.name for t in threading.enumerate())}")
+    t0 = time.perf_counter()
+    times = timing_process(os.path.dirname(os.path.abspath(__file__)),
+                           frames, args, cands, rig.num_objects)["times"]
+    print(f"[6] kernel times in a process of their own "
+          f"({time.perf_counter() - t0:.1f} s)")
     B, M = loc.valid.shape
     det_ms = times["detect_blobs"]["ms"]
     bank_ms = times[f"kalman_bank B={B}"]["ms"]
@@ -1375,40 +1439,19 @@ def phase_compare(old_root, frames, args, cands, num_objects):
     card and the same inputs: four processes in turns, old, new, new, old,
     each building its own kernels, running ``kernel_times`` and serving
     with ``serve_rates``."""
-    import tempfile
-
-    import torch
-
-    script = os.path.abspath(__file__)
-    here = os.path.dirname(script)
+    here = os.path.dirname(os.path.abspath(__file__))
     runs = []
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "inputs.pt")
-        torch.save({"frames": frames.cpu(), "args": list(args),
-                    "cands": [c.cpu() for c in cands], "O": num_objects},
-                   path)
-        for label, root in (("old", old_root), ("new", here), ("new", here),
-                            ("old", old_root)):
-            code = (f"import runpy, sys; sys.argv = [{script!r}, "
-                    f"'--time-kernels', {path!r}]; "
-                    f"runpy.run_path({script!r}, run_name='__main__')")
-            proc = subprocess.run([sys.executable, "-c", code], cwd=root,
-                                  capture_output=True, text=True,
-                                  timeout=900)
-            check(proc.returncode == 0,
-                  f"timing run in {root} failed:\n{proc.stderr[-3000:]}")
-            line = [ln for ln in proc.stdout.splitlines()
-                    if ln.startswith("TIMES ")][-1]
-            res = json.loads(line[len("TIMES "):])
-            check(res["package"].startswith(os.path.abspath(root)),
-                  f"timing run in {root} imported {res['package']}")
-            runs.append((label, res))
-            print_kernel_times(f"[8] {label} ({root})", res["times"])
-            r = res["rates"]
-            print(f"[8] {label} ({root}) serving: per frame "
-                  f"{r['per_frame']:.1f} frames/s, batched B={BATCH} "
-                  f"{r['batched']:.1f} frames/s, "
-                  f"{r['kernels_per_frame']:.1f} kernels a per-frame frame")
+    for label, root in (("old", old_root), ("new", here), ("new", here),
+                        ("old", old_root)):
+        res = timing_process(root, frames, args, cands, num_objects,
+                             rates=True)
+        runs.append((label, res))
+        print_kernel_times(f"[8] {label} ({root})", res["times"])
+        r = res["rates"]
+        print(f"[8] {label} ({root}) serving: per frame "
+              f"{r['per_frame']:.1f} frames/s, batched B={BATCH} "
+              f"{r['batched']:.1f} frames/s, "
+              f"{r['kernels_per_frame']:.1f} kernels a per-frame frame")
     for name in runs[0][1]["times"]:
         row = {}
         for label in ("old", "new"):
@@ -1429,9 +1472,9 @@ def phase_compare(old_root, frames, args, cands, num_objects):
 
 
 def time_kernels_main(path):
-    """``--time-kernels``: ``kernel_times`` on saved inputs and
+    """``--time-kernels``: ``kernel_times`` on saved inputs and, when asked,
     ``serve_rates``, printed as one ``TIMES {...}`` line (a process of
-    ``phase_compare``)."""
+    ``timing_process``)."""
     import torch
 
     from low_cost_mocap_tpu_torch.ops import native
@@ -1441,8 +1484,9 @@ def time_kernels_main(path):
     d = torch.load(path)
     times = kernel_times(d["frames"].to(DEVICE), tuple(d["args"]),
                          tuple(c.to(DEVICE) for c in d["cands"]), d["O"])
-    print("TIMES " + json.dumps({"package": os.path.abspath(native.__file__),
-                                 "times": times, "rates": serve_rates()}))
+    print("TIMES " + json.dumps({
+        "package": os.path.abspath(native.__file__), "times": times,
+        "rates": serve_rates() if d["rates"] else None}))
 
 
 def wand_capture(rig, Rs, ts, n, seed=0):
@@ -2703,7 +2747,7 @@ def phase_offline(rig, cfg, Rs, ts):
     version on the path's inputs.  Then ``stream_recording`` with body
     sets over BODY_STREAM_FRAMES frames of [10a]'s scene, bitwise equal to
     the one-shot run at chunks of the block's length.  Returns ({path:
-    launches}, (detect err, bank err))."""
+    launches}, (detect err, bank err), the recordings for [16c])."""
     import dataclasses
 
     import torch
@@ -2862,7 +2906,9 @@ def phase_offline(rig, cfg, Rs, ts):
           f"stream_recording {t_stream:.2f} s, tracks, fits and body "
           f"tracks bitwise equal")
     print(f"[12] took {time.perf_counter() - t_all:.1f} s")
-    return launches, (det_err, bank_err)
+    data = dict(rig=rig, cfg=cfg, frames=frames, blobs=(blobs, valid),
+                dts=dts, cal=cal, body=(b_blobs, bd, brig, bcfg, sets))
+    return launches, (det_err, bank_err), data
 
 
 def phase_multirig(cfg):
@@ -3370,39 +3416,16 @@ def bits_equal(a, b) -> bool:
                                                  b.view(np.uint32))
 
 
-class EagerStep:
-    """A compiled step called op by op (``CompiledStep.eager``: the step's
-    function over the same buffers): [15]'s reference and the eager side
-    of its rates."""
+def op_by_op(name: str):
+    """For the "eager" side of a graph-against-eager comparison,
+    ``compiled.disable_graphs()`` (the steps called on this thread run op
+    by op over their buffers); for the "graph" side, nothing."""
+    import contextlib
 
-    def __init__(self, step):
-        self.step, self.state, self.args = step, step.state, step.args
+    from low_cost_mocap_tpu_torch.runtime import compiled
 
-    def __call__(self, state, *args):
-        return self.step.eager(state, *args)
-
-
-def eager(eng):
-    """``eng`` with its compiled steps, and those a rebuild makes, called
-    op by op."""
-    from low_cost_mocap_tpu_torch.runtime.compiled import CompiledStep
-
-    build = eng._build_steps
-
-    def eager_steps():
-        steps = build()
-        for k, st in steps.items():
-            if isinstance(st, CompiledStep):
-                steps[k] = EagerStep(st)
-            else:                       # the batched program's two steps
-                st.head = EagerStep(st.head)
-                if st.body is not None:
-                    st.body = EagerStep(st.body)
-        return steps
-
-    eng._build_steps = eager_steps
-    eng._steps = eager_steps()
-    return eng
+    return (compiled.disable_graphs() if name == "eager"
+            else contextlib.nullcontext())
 
 
 def graph_steps(eng):
@@ -3420,17 +3443,20 @@ def graph_vs_eager(tag, make, frames, want_detect, want_bank, restart=None):
     first WARM_FRAMES are left out of the rate; a batched engine
     (``restart`` given) serves one batch first (the graph's capture, the
     eager step's first allocations), then restarts tracking.  Returns
-    ({"graph", "eager"}: frames/s, the graph engine, its launches)."""
+    ({"graph", "eager"}: frames/s, the graph engine, its launches).  The
+    eager engine serves inside ``compiled.disable_graphs()``: its steps run
+    op by op over the same buffers."""
     fps, rows, launches = {}, {}, None
     for name in ("graph", "eager"):
-        eng = make() if name == "graph" else eager(make())
-        if restart is not None:
-            serve_all(eng, frames[:BATCH])()
-            restart(eng)
-        got = capture_rows(eng)
-        reset_launches()
-        fps[name] = timed_serve(eng, frames,
-                                0 if restart is not None else WARM_FRAMES)
+        eng = make()
+        with op_by_op(name):
+            if restart is not None:
+                serve_all(eng, frames[:BATCH])()
+                restart(eng)
+            got = capture_rows(eng)
+            reset_launches()
+            fps[name] = timed_serve(eng, frames, 0 if restart is not None
+                                    else WARM_FRAMES)
         if name == "graph":
             launches = read_launches(f"{tag} graph", want_detect, want_bank)
             g = eng
@@ -3494,18 +3520,18 @@ def compiled_rebuild(rig, cfg, Rs, ts):
     res = {}
     for name in ("graph", "eager"):
         eng, _ = serving_engine(rig, bcfg, Rs, ts, None)
-        if name == "eager":
-            eager(eng)
         got = []
         eng.on("body-template", got.append)
         rows = capture_rows(eng)
-        eng.handle("learn-body-template", {"startOrStop": "start"})
-        serve_all(eng, frames[:LEARN_FRAMES], flush=False)()
-        before = graph_steps(eng)
-        eng.handle("learn-body-template", {"startOrStop": "stop",
-                                           "apply": True, "maxBodies": 1})
-        n0 = len(rows)
-        serve_all(eng, frames[LEARN_FRAMES:])()
+        with op_by_op(name):
+            eng.handle("learn-body-template", {"startOrStop": "start"})
+            serve_all(eng, frames[:LEARN_FRAMES], flush=False)()
+            before = graph_steps(eng)
+            eng.handle("learn-body-template", {"startOrStop": "stop",
+                                               "apply": True,
+                                               "maxBodies": 1})
+            n0 = len(rows)
+            serve_all(eng, frames[LEARN_FRAMES:])()
         res[name] = (got, np.concatenate(rows[n0:]), eng, before)
     (tg, rg, eng, before), (te, re_, _, _) = res["graph"], res["eager"]
     check(len(tg) == 1 and tg[0].get("applied") and tg == te,
@@ -3704,6 +3730,235 @@ def phase_compiled(rig, cfg, Rs, ts):
     return launches
 
 
+def print_captures(tag, steps):
+    for s in steps:
+        print(f"    capture {tag} / {s.name}: {s.capture_ms:.1f} ms, pool "
+              f"{s.pool_bytes / 2**20:.1f} MiB, launches a replay "
+              f"(detect_blobs, kalman_bank) {tuple(s.launches_per_replay)}")
+
+
+def phase_mesh_graphs(rig, cfg, Rs, ts, frames16):
+    """[16a] The drone rig camera-sharded at cam = 2 and 4 on the one card
+    (at cam = 4 named by its index, ``cuda:0``, as the ``cuda`` tests name
+    it) and [16b] the 16-camera ring at cam = 4, each served by a graph
+    engine and by the same engine inside ``compiled.disable_graphs()``
+    (its steps op by op), on the same frames:
+    per frame MESH_GRAPH_FRAMES after the first WARM_FRAMES ([16a]), and
+    COMPILED_BATCHES batches of BATCH after a warm-up batch; rows bitwise
+    equal ([14a]/[14b] hold the graph engines' rows to the single-device
+    engines'); graph and eager frames/s, busy ms and idle share a frame,
+    the host's kernel and graph launches a frame, each graph's capture ms
+    and pool MiB.  Returns {path: launches}."""
+    import dataclasses
+
+    import torch
+
+    from low_cost_mocap_tpu_torch.parallel import mesh as mesh_lib
+    from low_cost_mocap_tpu_torch.runtime.sources import SyntheticSource
+    from low_cost_mocap_tpu_torch.utils import synthetic as syn
+
+    card = torch.device(DEVICE)
+    src = SyntheticSource(rig, Rs, ts, num_drones=2, headings=(0.0, np.pi))
+    n, n_b = WARM_FRAMES + MESH_GRAPH_FRAMES, COMPILED_BATCHES * BATCH
+    frames = [src.read_at(i / 60) for i in range(max(n, n_b))]
+    bcfg = dataclasses.replace(cfg, dispatch_batch=BATCH)
+    Rs16, ts16, rig16 = syn.ring_rig(num_cameras=LARGE_CAMERAS,
+                                     image_size=320)
+
+    def restart(R, t):
+        def run(eng):
+            eng.handle("triangulate-points", {"startOrStop": "stop"})
+            start_tracking(eng, R, t)
+        return run
+
+    cases = []
+    for d in MESH_SHARDS:
+        # cam = 4 names the card by its index, as the cuda tests do
+        dev = torch.device(card.type, 0) if d == 4 else card
+
+        def make(c, d=d, dev=dev):
+            mesh = mesh_lib.make_mesh({"cam": d}, devices=[dev] * d)
+            return lambda: serving_engine(rig, c, Rs, ts, src, mesh=mesh,
+                                          device=dev)[0]
+        cases += [(f"[16a] cam={d}, per frame", make(cfg), frames[:n],
+                   d * n, n, None),
+                  (f"[16a] cam={d}, batched", make(bcfg), frames[:n_b],
+                   d * COMPILED_BATCHES, COMPILED_BATCHES, restart(Rs, ts))]
+    mesh4 = mesh_lib.make_mesh({"cam": 4}, devices=[card] * 4)
+    cases.append((
+        "[16b] 16 cameras, cam=4, batched",
+        lambda: serving_engine(rig16, bcfg, Rs16, ts16, None,
+                               mesh=mesh4)[0],
+        frames16[:n_b], 4 * COMPILED_BATCHES, COMPILED_BATCHES,
+        restart(Rs16, ts16)))
+    launches = {}
+    for tag, make, fs, want_d, want_k, rst in cases:
+        t0 = time.perf_counter()
+        fps, g, launches[tag] = graph_vs_eager(tag, make, fs, want_d, want_k,
+                                               rst)
+        m = LAUNCH_FRAMES if rst is None else BATCH
+        prof = profile_frames(serve_all(g, fs[:m], flush=False), m)
+        idle = 1 - prof[0] / (1e3 / fps["graph"])
+        print(f"{tag}: {len(fs)} frames, graph {fps['graph']:.1f} frames/s, "
+              f"eager {fps['eager']:.1f} frames/s "
+              f"({fps['graph'] / fps['eager']:.2f}x), rows bitwise equal; "
+              f"a frame: {prof[1]:.1f} device kernels, {prof[0]:.3f} ms "
+              f"busy (idle share {idle:.3f}), the host launched "
+              f"{prof[4][0]:.2f} kernels and {prof[4][1]:.2f} graphs "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if rst is None:
+            check(sum(prof[4]) <= HOST_LAUNCHES_MAX and prof[4][1] >= 1,
+                  f"{tag}: the host launched {prof[4]} (kernels, graphs) a "
+                  "graphed frame")
+        print_captures(tag, graph_steps(g))
+    return launches
+
+
+def same_results(a, b) -> bool:
+    """Every tensor leaf of two results equal bit for bit."""
+    import torch
+
+    from low_cost_mocap_tpu_torch.utils import tree
+
+    def bits(x):
+        x = x.contiguous()
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    la, lb = tree.leaves(a), tree.leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(bits(x), bits(y)) for x, y in zip(la, lb))
+
+
+def phase_offline_graphs(data):
+    """[16c] Offline processing as graphs against the same calls op by op
+    (``compiled.disable_graphs``) on [12]'s recordings: ``process_recording``
+    from frames, from host blobs with ``smooth``, from the body scene's
+    blobs with body sets and ``smooth``; ``stream_recording`` (a partial
+    last block).  Outputs bitwise equal; frames/s of each; busy ms and
+    idle share a frame and the host's launches a frame of the drone
+    paths.  Then cold calls at a fresh length (OFFLINE_COLD frame sets)
+    with the graph caches emptied first, so that they capture every graph
+    they use, each against its eager call (not slower, bitwise equal):
+    ``process_recording`` from frames and from host blobs with ``smooth``
+    (each then at a third length that captures nothing), and
+    ``stream_recording`` (its partial last block of a new length).  Each graph's
+    capture ms and pool MiB.  Returns {path: launches}."""
+    import torch
+
+    from low_cost_mocap_tpu_torch.models import offline
+    from low_cost_mocap_tpu_torch.runtime import compiled
+
+    frames, (blobs, valid), dts, cal = (data[k] for k in (
+        "frames", "blobs", "dts", "cal"))
+    b_blobs, bd, brig, bcfg, sets = data["body"]
+    rig, cfg = data["rig"], data["cfg"]
+    T = len(frames)
+
+    def one_shot(f, n, **kw):
+        return lambda: offline.process_recording(
+            f, *cal, rig, cfg, dts=dts[:n], chunk=OFFLINE_CHUNK, **kw)
+
+    cases = [
+        ("process_recording, frames", one_shot(frames, T), T,
+         -(-T // OFFLINE_CHUNK), 1),
+        ("process_recording, host blobs, smooth",
+         one_shot((blobs, valid), T, smooth=True), T, 0, 1),
+        ("process_recording, body sets, smooth",
+         lambda: offline.process_recording(
+             b_blobs, *cal, brig, bcfg, dts=bd, chunk=OFFLINE_BLOCK,
+             body_sets=sets, smooth=True), len(bd), 0, 1),
+        ("stream_recording", lambda: offline.stream_recording(
+            frames, *cal, rig, cfg, dts=dts, block=OFFLINE_BLOCK)[0], T, 0,
+         -(-T // OFFLINE_BLOCK)),
+    ]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    launches = {}
+    for name, fn, n, want_d, want_k in cases:
+        tag = f"[16c] {name}"
+        fn()                                  # captures, if any are new
+        reset_launches()
+        got, t_graph = timed(fn)
+        launches[tag] = read_launches(tag, want_d, want_k)
+        with compiled.disable_graphs():
+            want, t_eager = timed(fn)
+        check(same_results(got, want), f"{tag}: the graphs' outputs differ "
+              "from the calls op by op")
+        msg = (f"{tag}: {n} frame sets, graph {n / t_graph:.1f} frames/s "
+               f"({t_graph * 1e3:.1f} ms), eager {n / t_eager:.1f} frames/s "
+               f"({t_eager / t_graph:.2f}x), outputs bitwise equal")
+        if "body" in name:
+            # ~10,000 kernels a frame: [10a] profiles the body stage
+            print(msg)
+            continue
+        prof = profile_frames(fn, n)
+        print(f"{msg}; a frame: {prof[1]:.2f} device kernels, "
+              f"{prof[0]:.4f} ms busy (idle share "
+              f"{1 - prof[0] / (t_graph * 1e3 / n):.3f}), the host launched "
+              f"{prof[4][0]:.3f} kernels and {prof[4][1]:.3f} graphs")
+    print_captures("[16c]", offline.cached_steps())
+    # cold calls at a fresh length: every graph captured inside the call
+    n = OFFLINE_COLD
+    for name, kw in (("frames", {}), ("host blobs, smooth",
+                                      dict(smooth=True))):
+        f = frames[:n] if name == "frames" else (blobs[:n], valid[:n])
+        offline.clear_cache()
+        got, t_cold = timed(one_shot(f, n, **kw))
+        new = offline.cached_steps()
+        with compiled.disable_graphs():
+            want, t_eager = timed(one_shot(f, n, **kw))
+        check(same_results(got, want), f"[16c] cold {name}: outputs differ "
+              "from the eager call's")
+        check(t_cold <= t_eager, f"[16c] cold {name} at {n} frame sets: "
+              f"{t_cold * 1e3:.1f} ms, slower than eager "
+              f"{t_eager * 1e3:.1f} ms")
+        print(f"[16c] process_recording, {name}, {n} frame sets, cold (the "
+              f"cache emptied; {len(new)} graphs captured in the call, "
+              f"{sum(s.capture_ms for s in new):.1f} ms of captures): "
+              f"{t_cold * 1e3:.1f} ms against {t_eager * 1e3:.1f} ms eager "
+              f"({t_eager / t_cold:.2f}x), outputs bitwise equal")
+        print_captures(f"[16c] cold {name}", new)
+        k = len(offline.cached_steps())
+        m = OFFLINE_COLD - 2 * OFFLINE_CHUNK - 1
+        _, t_warm = timed(one_shot(f[:m] if name == "frames" else
+                                   (blobs[:m], valid[:m]), m, **kw))
+        check(len(offline.cached_steps()) == k, f"[16c] {name}: a call at {m} "
+              "frame sets captured a graph")
+        print(f"[16c] process_recording, {name}, {m} frame sets: no new "
+              f"graph, {t_warm * 1e3:.1f} ms")
+    # stream_recording at the fresh length: a partial last block of a new
+    # length, its graph captured in the call
+    offline.clear_cache()
+
+    def stream():
+        return offline.stream_recording(frames[:n], *cal, rig, cfg,
+                                        dts=dts[:n], block=OFFLINE_BLOCK)[0]
+
+    got, t_cold = timed(stream)
+    new = offline.cached_steps()
+    with compiled.disable_graphs():
+        want, t_eager = timed(stream)
+    check(same_results(got, want), "[16c] cold stream_recording: outputs "
+          "differ from the eager call's")
+    check(t_cold <= t_eager, f"[16c] cold stream_recording at {n} frame "
+          f"sets: {t_cold * 1e3:.1f} ms, slower than eager "
+          f"{t_eager * 1e3:.1f} ms")
+    print(f"[16c] stream_recording, {n} frame sets, cold ({len(new)} graphs "
+          f"captured in the call, {sum(s.capture_ms for s in new):.1f} ms "
+          f"of captures): {t_cold * 1e3:.1f} ms against "
+          f"{t_eager * 1e3:.1f} ms eager ({t_eager / t_cold:.2f}x), outputs "
+          "bitwise equal")
+    print_captures("[16c] cold stream", new)
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -3773,8 +4028,8 @@ def main() -> None:
     t11 = time.perf_counter()
     large_paths, bank128_err, frames16 = phase_large_rig(cfg)
     paths.update(large_paths)
-    offline_paths, (off_det_err, off_bank_err) = phase_offline(rig, cfg, Rs,
-                                                               ts)
+    offline_paths, (off_det_err, off_bank_err), offline_data = \
+        phase_offline(rig, cfg, Rs, ts)
     paths.update(offline_paths)
     paths["[13] batched_track_from_blobs, 8 rigs"] = phase_multirig(cfg)
     print(f"[11]-[13] took {time.perf_counter() - t11:.1f} s")
@@ -3791,6 +4046,11 @@ def main() -> None:
     print(f"[14] took {time.perf_counter() - t14:.1f} s")
     # [15] the compiled steps against the eager step
     paths.update(phase_compiled(rig, cfg, Rs, ts))
+    # [16] the camera-sharded steps and offline processing as graphs
+    t16 = time.perf_counter()
+    paths.update(phase_mesh_graphs(rig, cfg, Rs, ts, frames16))
+    paths.update(phase_offline_graphs(offline_data))
+    print(f"[16] took {time.perf_counter() - t16:.1f} s")
     det_err = max(det_err, pre_det_err, off_det_err, mesh_det_err)
     bank_err = max(bank_err, bank64_err, bank128_err, off_bank_err,
                    mesh_bank_err)

@@ -27,11 +27,28 @@ synchronisation separates blocks.  Its drone results are bit-identical to
 and block (the geometry gives a frame set the same bits in any batch); body
 fits, batched over a chunk's frames through small matmuls, are
 bit-identical when ``chunk`` equals ``block``.
+
+Both run as compiled steps (``runtime/compiled.py``; the JAX package's
+``_compiled_run`` and ``_compiled_block``), cached by shape and never by
+the recording's length: the chunk's vision is one step of ``chunk`` frame
+sets (the last chunk zero-padded; its dead frame sets are dropped), each
+per-frame loop (the smoothers' forward and backward passes, the body
+trackers, the sign alignment) a ``ChunkedScan`` of ``chunk`` frames, and a
+streamed block one step with the trackers over its live frames (one for a
+full block, one for the partial last block).  The causal bank stays one
+kernel launch over T.  On the card each is a CUDA graph captured at its
+first use; on the CPU, and under ``compiled.disable_graphs()``, the same
+steps run op by op over their buffers.  A capture that fails raises.
+The cached steps' buffers are shared, so one offline call runs at a time
+in a process, whatever its device: ``process_recording`` and
+``stream_recording`` hold a module lock (``_LOCK``) for their whole call.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import functools
+import threading
 import time
 from typing import NamedTuple
 
@@ -44,7 +61,29 @@ from low_cost_mocap_tpu_torch.models import pipeline
 from low_cost_mocap_tpu_torch.ops import (body_tracker, correspond, detect,
                                           detect_cuda, kalman, rigid,
                                           rigid_general)
+from low_cost_mocap_tpu_torch.runtime import compiled
 from low_cost_mocap_tpu_torch.utils import tree
+
+# the compiled steps of the offline paths by shape, a cache for each kind
+# (as JAX keeps an lru_cache(maxsize=16) a compiled function): the chunk
+# vision, the streamed block and the chunked loops; _LOCK lets one call
+# at a time use them and their buffers
+_VISION, _BLOCKS, _SCANS = (compiled.GraphCache() for _ in range(3))
+_LOCK = threading.RLock()
+
+
+def cached_steps() -> list:
+    """The compiled steps the caches hold (a loop's, ``ChunkedScan.step``,
+    for a loop)."""
+    return [getattr(s, "step", s) for c in (_VISION, _BLOCKS, _SCANS)
+            for s in c.values()]
+
+
+def clear_cache() -> None:
+    """Drop every cached step and its graph."""
+    with _LOCK:
+        for c in (_VISION, _BLOCKS, _SCANS):
+            c.clear()
 
 
 class SequenceResult(NamedTuple):
@@ -112,36 +151,98 @@ def _fit_bodies(pts_w, pvalid, body_sets):
                                          for x in zip(*parts)))
 
 
-def _track_bodies(states, bodies, dts, body_sets):
+def _track_bodies(states, bodies, dts, body_sets, scan=tree.scan):
     """The body trackers frame by frame, one per set over its slot slice.
-    Returns (new states, TrackedBodies (T, I, ...))."""
+    Returns (new states, TrackedBodies (T, I, ...)); the states are None
+    from a runner that returns no carry (``_graph_scan``)."""
     new, tracks, off = [], [], 0
     for si, (_, max_inst) in enumerate(body_sets):
         sl = slice(off, off + max_inst)
-        st, per = states[si], []
-        for k in range(dts.shape[0]):
-            st, tb = body_tracker.update(st, bodies.t[k, sl], bodies.R[k, sl],
-                                         bodies.rms[k, sl],
-                                         bodies.valid[k, sl], dts[k])
-            per.append(tb)
+        st, tb = scan(body_tracker.update, states[si], bodies.t[:, sl],
+                      bodies.R[:, sl], bodies.rms[:, sl], bodies.valid[:, sl],
+                      dts)
         new.append(st)
-        tracks.append(tree.stack(per))
+        tracks.append(tb)
         off += max_inst
     return tuple(new), body_tracker.TrackedBodies(
         *(torch.cat(x, dim=1) for x in zip(*tracks)))
 
 
-def _frames_chunk(frames_seq, lo, hi, dev, packed, sparse, shape):
-    """Frame sets lo..hi as (L, C, H, W) float32 on ``dev``, and their
-    detection threshold (None: the config's; 0.5 for binary frames)."""
-    x = frames_seq[lo:hi]
-    x = x.to(dev) if isinstance(x, torch.Tensor) else torch.from_numpy(
-        np.ascontiguousarray(x)).to(dev)
-    if sparse:
-        return torch.stack([detect.scatter_pixels(i, shape) for i in x]), 0.5
-    if packed:
-        return detect.unpack_bits(x), 0.5
-    return x.to(torch.float32) * (1.0 / 255.0), None
+def _fn_key(fn):
+    """A hashable key for a step function (a ``functools.partial`` by its
+    function and arguments)."""
+    if isinstance(fn, functools.partial):
+        return (fn.func, fn.args, tuple(sorted(fn.keywords.items())))
+    return fn
+
+
+def _spec(tensors, lead: int = 0) -> tuple:
+    """Shapes (without ``lead`` leading dimensions), dtypes and devices."""
+    return tuple((tuple(t.shape[lead:]), t.dtype, str(t.device))
+                 for t in tensors)
+
+
+def _graph_scan(chunk: int):
+    """A loop runner with ``utils.tree.scan``'s signature that runs the loop
+    as a cached ``ChunkedScan`` of ``chunk`` frames: one graph a loop and
+    shape, whatever the recording's length.  It returns no carry."""
+    def run(step, carry, *xs, reverse=False):
+        key = ("scan", _fn_key(step), chunk, reverse,
+               _spec(tree.leaves(carry)), _spec(xs, 1))
+        name = getattr(getattr(step, "func", step), "__name__", "scan")
+        sc = _SCANS.get(key, lambda: compiled.ChunkedScan(
+            step, carry, xs, chunk, reverse=reverse, name=name))
+        return None, sc.run(carry, *xs)
+    return run
+
+
+def _vision(state, payload, Ps, K, dist, to_world_matrix, Fs, *, kind,
+            shape, rig, cfg, body_sets):
+    """One chunk of frame sets through the vision stages (a compiled step
+    without state, ``()``): detection unless ``kind`` is "blobs", then
+    ``_blob_tail`` and the body fits.  Returns ((), ((world points, valid,
+    errors, LocatedObjects), LocatedBodies or None))."""
+    if kind == "blobs":
+        blobs, bvalid = payload
+    else:
+        if kind == "sparse":
+            f = torch.stack([detect.scatter_pixels(i, shape)
+                             for i in payload])
+        elif kind == "packed":
+            f = detect.unpack_bits(payload)
+        else:
+            f = payload.to(torch.float32) * (1.0 / 255.0)
+        L, C = f.shape[:2]
+        # one launch for the chunk: its frame sets side by side as L*C
+        # cameras, which the detector treats independently
+        b, v, _ = detect_cuda.find_blobs(
+            f.reshape(L * C, *f.shape[2:]).contiguous(),
+            cfg.detect_threshold if kind == "dense" else 0.5, cfg.max_blobs,
+            cc_iters=cfg.cc_iters)
+        blobs, bvalid = b.view(L, C, -1, 2), v.view(L, C, -1)
+    out = _blob_tail(blobs, bvalid, Ps, K, dist, to_world_matrix, Fs,
+                     rig, cfg)
+    return (), (out, _fit_bodies(out[0], out[1], body_sets)
+                if body_sets else None)
+
+
+def _load(buf, x, lo: int, hi: int) -> None:
+    """Frames lo..hi of ``x`` (an array or a tensor) into the first rows of
+    ``buf``, zeros after them."""
+    part = x[lo:hi]
+    if not isinstance(part, torch.Tensor):
+        part = torch.from_numpy(np.ascontiguousarray(part))
+    n = hi - lo
+    buf[:n].copy_(part)
+    if n < buf.shape[0]:
+        buf[n:].zero_()
+
+
+def _into(dst, out, lo: int, n: int) -> None:
+    """Copy the first ``n`` rows of each leaf of ``out`` into rows
+    lo..lo+n of the like leaf of ``dst``."""
+    for d, y in zip(tree.leaves(dst), tree.leaves(out)):
+        d[lo:lo + n].copy_(y[:n])
 
 
 def process_recording(frames_seq, Ps, K, dist, to_world_matrix,
@@ -161,6 +262,12 @@ def process_recording(frames_seq, Ps, K, dist, to_world_matrix,
     at a time.  ``body_sets`` (((BodyTemplate, max_instances), ...); or
     ``body_template``/``max_bodies``): 6-DoF fits and tracks per frame.
     ``smooth``: also the RTS-smoothed drone tracks (and body tracks).
+
+    The vision is one compiled step of ``chunk`` frame sets (the last chunk
+    zero-padded), the smoothers' and the body trackers' loops are
+    ``ChunkedScan``s of ``chunk`` frames, all cached by shape
+    (``_VISION``, ``_SCANS``): a recording of any length replays them.
+    One offline call runs at a time in a process (``_LOCK``).
     """
     dev = Ps.device
     body_sets = _resolve_sets(body_template, max_bodies, body_sets)
@@ -170,54 +277,65 @@ def process_recording(frames_seq, Ps, K, dist, to_world_matrix,
            else torch.as_tensor(dts)).to(dtype=torch.float32, device=dev)
     Fs = correspond._pairwise_fundamentals(Ps)
     shape = (rig.num_cameras, *rig.image_hw())
-    outs, fits = [], []
-    for lo in range(0, T, chunk):
-        hi = min(lo + chunk, T)
-        if from_blobs:
-            blobs, bvalid = (torch.as_tensor(a[lo:hi]).to(dev)
-                             for a in frames_seq)
-        else:
-            f, thr = _frames_chunk(frames_seq, lo, hi, dev, packed, sparse,
-                                   shape)
-            L, C = f.shape[:2]
-            # one launch for the chunk: its frame sets side by side as
-            # L*C cameras, which the detector treats independently
-            b, v, _ = detect_cuda.find_blobs(
-                f.reshape(L * C, *f.shape[2:]).contiguous(),
-                cfg.detect_threshold if thr is None else thr, cfg.max_blobs,
-                cc_iters=cfg.cc_iters)
-            blobs, bvalid = b.view(L, C, -1, 2), v.view(L, C, -1)
-        out = _blob_tail(blobs, bvalid, Ps, K, dist, to_world_matrix, Fs,
-                         rig, cfg)
-        outs.append(out)
-        if body_sets:
-            fits.append(_fit_bodies(out[0], out[1], body_sets))
-    pts_w, pvalid, perr, loc = tree.cat(outs)
-    _, tracked = pipeline._bank(
-        kalman.init_state(rig.num_objects, device=dev), loc, dts,
-        cfg.kalman_report, "auto")
-    smoothed = bodies = body_tracks = smoothed_bodies = None
-    if smooth:
-        smoothed, _ = kalman.smooth_sequence(
-            kalman.init_state(rig.num_objects, device=dev), loc.pos,
-            loc.heading, loc.index, loc.valid, dts,
-            process_noise=cfg.kalman_process_noise,
-            meas_noise=cfg.kalman_measurement_noise)
-    if body_sets:
-        bodies = tree.cat(fits)
-        _, body_tracks = _track_bodies(
-            tuple(body_tracker.init_state(mi, device=dev)
-                  for _, mi in body_sets), bodies, dts, body_sets)
+    kind = ("blobs" if from_blobs else "sparse" if sparse
+            else "packed" if packed else "dense")
+    seqs = frames_seq if from_blobs else (frames_seq,)
+    cal = (Ps, K, dist, to_world_matrix, Fs)
+    key = ("vision", kind, chunk, _spec(cal),
+           tuple((tuple(np.shape(a)[1:]), str(a.dtype)) for a in seqs),
+           rig, cfg, body_sets)
+
+    def build():
+        bufs = tuple(torch.zeros((chunk,) + tuple(np.shape(a)[1:]),
+                                 dtype=torch.as_tensor(a[:1]).dtype,
+                                 device=dev) for a in seqs)
+        return compiled.CompiledStep(
+            functools.partial(_vision, kind=kind, shape=shape, rig=rig,
+                              cfg=cfg, body_sets=body_sets), (),
+            bufs if from_blobs else bufs[0],
+            *(torch.zeros_like(t) for t in cal), name=f"offline {kind}")
+
+    with _LOCK:
+        step = _VISION.get(key, build)
+        bufs = tree.leaves(step.args[0])
+        compiled.assign(step.args[1:], cal)
+        res = None
+        for lo in range(0, T, chunk):
+            hi = min(lo + chunk, T)
+            for buf, a in zip(bufs, seqs):
+                _load(buf, a, lo, hi)
+            _, out = step((), *step.args)
+            if res is None:
+                res = tree.tree_map(
+                    lambda y: y.new_empty((T,) + tuple(y.shape[1:])), out)
+            _into(res, out, lo, hi - lo)
+        (pts_w, pvalid, perr, loc), bodies = res
+        _, tracked = pipeline._bank(
+            kalman.init_state(rig.num_objects, device=dev), loc, dts,
+            cfg.kalman_report, "auto")
+        scan = _graph_scan(chunk)
+        smoothed = body_tracks = smoothed_bodies = None
         if smooth:
-            parts, off = [], 0
-            for _, max_inst in body_sets:
-                sl = slice(off, off + max_inst)
-                parts.append(body_tracker.smooth_body_sequence(
-                    bodies.t[:, sl], bodies.R[:, sl], bodies.rms[:, sl],
-                    bodies.valid[:, sl], dts, max_bodies=max_inst))
-                off += max_inst
-            smoothed_bodies = body_tracker.SmoothedBodies(
-                *(torch.cat(x, dim=1) for x in zip(*parts)))
+            smoothed, _ = kalman.smooth_sequence(
+                kalman.init_state(rig.num_objects, device=dev), loc.pos,
+                loc.heading, loc.index, loc.valid, dts,
+                process_noise=cfg.kalman_process_noise,
+                meas_noise=cfg.kalman_measurement_noise, scan=scan)
+        if body_sets:
+            _, body_tracks = _track_bodies(
+                tuple(body_tracker.init_state(mi, device=dev)
+                      for _, mi in body_sets), bodies, dts, body_sets, scan)
+            if smooth:
+                parts, off = [], 0
+                for _, max_inst in body_sets:
+                    sl = slice(off, off + max_inst)
+                    parts.append(body_tracker.smooth_body_sequence(
+                        bodies.t[:, sl], bodies.R[:, sl], bodies.rms[:, sl],
+                        bodies.valid[:, sl], dts, max_bodies=max_inst,
+                        scan=scan))
+                    off += max_inst
+                smoothed_bodies = body_tracker.SmoothedBodies(
+                    *(torch.cat(x, dim=1) for x in zip(*parts)))
     return SequenceResult(pts_w, pvalid, perr, loc.pos, loc.valid, tracked,
                           bodies, body_tracks, smoothed, smoothed_bodies)
 
@@ -228,6 +346,29 @@ class StreamStats(NamedTuple):
     wall_s: float
     detect_s: float
     blocks: int
+
+
+def _block(state, up, dts, Ps, K, dist, to_world_matrix, Fs, *, n_live,
+           rig, cfg, body_sets):
+    """One streamed block (a compiled step): the vision over the whole
+    (block, C, K, 3) buffer, the trackers over its first ``n_live`` frame
+    sets.  Returns (state, (world points, valid, errors, LocatedObjects,
+    TrackedObjects[, LocatedBodies, TrackedBodies]) of the live frames)."""
+    kstate, bstates = state if body_sets else (state, ())
+    out = _blob_tail(up[..., :2], up[..., 2] > 0.5, Ps, K, dist,
+                     to_world_matrix, Fs, rig, cfg)
+    loc = rigid.LocatedObjects(*(x[:n_live] for x in out[3]))
+    d = dts[:n_live]
+    # the gate: dead frames are a suffix, so the trackers run over the
+    # live prefix only
+    kstate, tr = pipeline._bank(kstate, loc, d, cfg.kalman_report, "auto")
+    res = tuple(x[:n_live] for x in out[:3]) + (loc, tr)
+    if not body_sets:
+        return kstate, res
+    b = _fit_bodies(out[0], out[1], body_sets)
+    b = rigid_general.LocatedBodies(*(x[:n_live] for x in b))
+    bstates, tb = _track_bodies(bstates, b, d, body_sets)
+    return (kstate, bstates), res + (b, tb)
 
 
 def stream_recording(frames_u8_seq, Ps, K, dist, to_world_matrix,
@@ -242,11 +383,13 @@ def stream_recording(frames_u8_seq, Ps, K, dist, to_world_matrix,
 
     frames_u8_seq: (T, C, H, W) uint8 of any length: each block's host
     detection fills a fixed (block, C, K, 3) page-locked buffer; a partial
-    last block is zero-padded, and the ``live`` mask gates it, so a dead
-    frame leaves every tracker state untouched (the bank runs the block's
-    live prefix, the body trackers skip dead frames).  Returns
-    (SequenceResult trimmed to T, final state); ``stats``, when given, gets
-    a ``StreamStats``.
+    last block is zero-padded and its trackers run over its live frames
+    only, so a dead frame leaves every tracker state untouched.  A block is
+    one compiled step (``_block``), cached by shape with the number of
+    live frames: one for a full block, one for the partial last block.
+    Returns (SequenceResult trimmed to T, final state, tensors of its
+    own); ``stats``, when given, gets a ``StreamStats``.  One offline call
+    runs at a time in a process (``_LOCK``).
     """
     t_wall = time.perf_counter()
     dev = Ps.device
@@ -263,72 +406,68 @@ def stream_recording(frames_u8_seq, Ps, K, dist, to_world_matrix,
         if body_sets:
             state = (state, tuple(body_tracker.init_state(mi, device=dev)
                                   for _, mi in body_sets))
-    kstate, bstates = state if body_sets else (state, ())
     C, KB = rig.num_cameras, cfg.max_blobs
     cutoff = detect.threshold_cutoff(cfg.detect_threshold)
     ring = [torch.zeros((block, C, KB, 3), pin_memory=cuda)
             for _ in range(2)]
     uploaded = [None, None]          # the event after each slot's upload
     detect_s = [0.0]
-    Fs = correspond._pairwise_fundamentals(Ps)
+    cal = (Ps, K, dist, to_world_matrix, correspond._pairwise_fundamentals(Ps))
     n_blocks = -(-T // block)
 
     def host_detect(i):
-        """Block i into ring slot i % 2; returns its live mask."""
+        """Block i into ring slot i % 2; returns its number of frames."""
         t0 = time.perf_counter()
         slot = i % 2
         if uploaded[slot] is not None:
             uploaded[slot].synchronize()   # that slot's last upload is done
         blk = frames[i * block:(i + 1) * block]
         buf = ring[slot].numpy()
-        live = np.zeros((block,), bool)
-        live[:len(blk)] = True
         bindings.ingest_detect_packed(blk, cutoff, KB, weighted=weighted,
                                       out=buf[:len(blk)])
         buf[len(blk):] = 0.0
         detect_s[0] += time.perf_counter() - t0
-        return live
+        return len(blk)
 
-    outs, fits, tracks, btracks = [], [], [], []
-    with concurrent.futures.ThreadPoolExecutor(
+    def block_step(n_live):
+        key = ("block", block, n_live, _spec(tree.leaves(state)),
+               _spec(cal), rig, cfg, body_sets)
+        return _BLOCKS.get(key, lambda: compiled.CompiledStep(
+            functools.partial(_block, n_live=n_live, rig=rig, cfg=cfg,
+                              body_sets=body_sets),
+            tree.tree_map(torch.clone, state),
+            torch.zeros((block, C, KB, 3), device=dev),
+            torch.zeros((block,), device=dev),
+            *(torch.zeros_like(t) for t in cal), name="stream block"))
+
+    res = None
+    with _LOCK, concurrent.futures.ThreadPoolExecutor(
             1, thread_name_prefix="lcm-offline-detect") as pool:
         nxt = pool.submit(host_detect, 0)
         for i in range(n_blocks):
-            live = nxt.result()
+            n_live = nxt.result()
             slot = i % 2
+            step = block_step(n_live)
+            if i == 0 or n_live < block:
+                compiled.assign(step.args[2:], cal)
+            d = np.zeros((block,), np.float32)
+            d[:n_live] = dts[i * block:i * block + n_live]
+            state, out = step(state, ring[slot], d, *step.args[2:])
             if cuda:
-                up = ring[slot].to(dev, non_blocking=True)
                 uploaded[slot] = torch.cuda.Event()
                 uploaded[slot].record()
-            else:
-                up = ring[slot].clone()
             if i + 1 < n_blocks:
                 nxt = pool.submit(host_detect, i + 1)
-            n_live = int(live.sum())
-            d = torch.from_numpy(dts[i * block:i * block + n_live]).to(dev)
-            out = _blob_tail(up[..., :2], up[..., 2] > 0.5, Ps, K, dist,
-                             to_world_matrix, Fs, rig, cfg)
-            loc = out[3]
-            # the gate: dead frames are a suffix, so the trackers run over
-            # the live prefix only
-            kstate, tr = pipeline._bank(
-                kstate, rigid.LocatedObjects(*(x[:n_live] for x in loc)),
-                d, cfg.kalman_report, "auto")
-            outs.append(tuple(x[:n_live] for x in out[:3])
-                        + (rigid.LocatedObjects(*(x[:n_live] for x in loc)),))
-            tracks.append(tr)
-            if body_sets:
-                b = _fit_bodies(out[0], out[1], body_sets)
-                b = rigid_general.LocatedBodies(*(x[:n_live] for x in b))
-                bstates, tb = _track_bodies(bstates, b, d, body_sets)
-                fits.append(b)
-                btracks.append(tb)
-    pts_w, pvalid, perr, loc = tree.cat(outs)
-    res = SequenceResult(pts_w, pvalid, perr, loc.pos, loc.valid,
-                         tree.cat(tracks),
-                         tree.cat(fits) if body_sets else None,
-                         tree.cat(btracks) if body_sets else None)
+            if res is None:
+                res = tree.tree_map(
+                    lambda y: y.new_empty((T,) + tuple(y.shape[1:])), out)
+            _into(res, out, i * block, n_live)
+        # the state is the cached step's buffers: the caller gets a copy
+        state = tree.tree_map(torch.clone, state)
+    pts_w, pvalid, perr, loc, tracked = res[:5]
+    out = SequenceResult(pts_w, pvalid, perr, loc.pos, loc.valid, tracked,
+                         *(res[5:] if body_sets else ()))
     if stats is not None:
         stats.append(StreamStats(time.perf_counter() - t_wall, detect_s[0],
                                  n_blocks))
-    return res, ((kstate, bstates) if body_sets else kstate)
+    return out, state

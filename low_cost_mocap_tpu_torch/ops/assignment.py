@@ -31,10 +31,12 @@ def _perm_table(n: int) -> np.ndarray:
     return np.asarray(list(itertools.permutations(range(n))), np.int32)
 
 
-@functools.lru_cache(maxsize=32)
+@functools.cache
 def _perm_table_on(n: int, device: torch.device):
     """The permutation table on ``device``, int64 for indexing, and the
-    flat cost index of each of its entries, ``row * n + perm[p, row]``."""
+    flat cost index of each of its entries, ``row * n + perm[p, row]``.
+    Kept for the life of the process: a captured graph reads it by
+    address."""
     perms = torch.as_tensor(_perm_table(n), dtype=torch.int64,
                             device=device)
     flat = perms + n * torch.arange(n, dtype=torch.int64, device=device)

@@ -15,6 +15,7 @@ an RTS backward pass and quaternion SLERP through occlusion gaps.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -23,6 +24,7 @@ from low_cost_mocap_tpu_torch.device import resolve_device
 from low_cost_mocap_tpu_torch.ops.assignment import assign
 from low_cost_mocap_tpu_torch.ops.rotations import (matrix_to_quat,
                                                     quat_to_matrix)
+from low_cost_mocap_tpu_torch.utils import tree
 
 
 class BodyTrackState(NamedTuple):
@@ -204,68 +206,95 @@ def _F6(dt, dtype, device):
     return F
 
 
-def _cv_forward(z, ok, dts, process_noise, meas_noise):
+@functools.cache
+def _cv_constants(device: torch.device, dtype, meas_noise: float):
+    """(I6, H = [I3 | 0], R = meas_noise I3) of the constant-velocity
+    filter on ``device``, made once rather than at every frame.  Kept for
+    the life of the process: a captured graph reads them by address."""
+    H = torch.cat([torch.eye(3, dtype=dtype, device=device),
+                   torch.zeros((3, 3), dtype=dtype, device=device)], dim=1)
+    R = torch.eye(3, dtype=dtype, device=device) * meas_noise
+    return torch.eye(6, dtype=dtype, device=device), H, R
+
+
+@functools.cache
+def _cv_process(device: torch.device, dtype, process_noise: float):
+    """Q = process_noise I6 on ``device``, kept as ``_cv_constants``."""
+    return torch.eye(6, dtype=dtype, device=device) * process_noise
+
+
+def _cv_forward_step(carry, zt, okt, dt, *, process_noise, meas_noise):
+    """One frame of the constant-velocity filter: carry (x, P, inited)
+    -> the same after the frame, as both the carry and the output."""
+    x, P, inited = carry
+    dtype, dev = zt.dtype, zt.device
+    I6, H, R = _cv_constants(dev, dtype, float(meas_noise))
+    Q = _cv_process(dev, dtype, float(process_noise))
+    F = _F6(dt, dtype, dev)
+    x_pre = torch.einsum("ij,oj->oi", F, x)
+    P_pre = torch.einsum("ij,ojk,lk->oil", F, P, F) + Q
+    need = okt & ~inited
+    x_pre = torch.where(need[:, None],
+                        torch.cat([zt, torch.zeros_like(zt)], -1), x_pre)
+    P_pre = torch.where(need[:, None, None], I6, P_pre)
+    inited2 = inited | okt
+    S = torch.einsum("ij,ojk,lk->oil", H, P_pre, H) + R
+    # inv_ex: no check that reads the result back to the host
+    K = torch.einsum("oij,kj,okl->oil", P_pre, H,
+                     torch.linalg.inv_ex(S).inverse)
+    resid = zt - torch.einsum("ij,oj->oi", H, x_pre)
+    x_post = x_pre + torch.einsum("oij,oj->oi", K, resid)
+    P_post = P_pre - torch.einsum("oij,jk,okl->oil", K, H, P_pre)
+    x_new = torch.where(okt[:, None], x_post, x_pre)
+    P_new = torch.where(okt[:, None, None], P_post, P_pre)
+    # uninitialised slots stay frozen
+    x = torch.where(inited2[:, None], x_new, x)
+    P = torch.where(inited2[:, None, None], P_new, P)
+    return (x, P, inited2), (x, P, inited2)
+
+
+def _cv_forward(z, ok, dts, process_noise, meas_noise, scan=tree.scan):
     """Per-slot constant-velocity Kalman filter, one predict per frame.
 
     z: (T, I, 3) associated measurements; ok: (T, I); dts: (T,).
     Returns (xs (T, I, 6), Ps (T, I, 6, 6), inited (T, I)).
     """
     dtype, dev = z.dtype, z.device
-    I6 = torch.eye(6, dtype=dtype, device=dev)
-    H = torch.cat([torch.eye(3, dtype=dtype, device=dev),
-                   torch.zeros((3, 3), dtype=dtype, device=dev)], dim=1)
-    R = torch.eye(3, dtype=dtype, device=dev) * meas_noise
-    Q = I6 * process_noise
     n_slots = z.shape[1]
-
-    x = torch.zeros((n_slots, 6), dtype=dtype, device=dev)
-    P = I6.expand(n_slots, 6, 6)
-    inited = torch.zeros((n_slots,), dtype=torch.bool, device=dev)
-    xs, Ps, its = [], [], []
-    for k in range(z.shape[0]):
-        zt, okt = z[k], ok[k]
-        F = _F6(dts[k], dtype, dev)
-        x_pre = torch.einsum("ij,oj->oi", F, x)
-        P_pre = torch.einsum("ij,ojk,lk->oil", F, P, F) + Q
-        need = okt & ~inited
-        x_pre = torch.where(need[:, None],
-                            torch.cat([zt, torch.zeros_like(zt)], -1), x_pre)
-        P_pre = torch.where(need[:, None, None], I6, P_pre)
-        inited2 = inited | okt
-        S = torch.einsum("ij,ojk,lk->oil", H, P_pre, H) + R
-        K = torch.einsum("oij,kj,okl->oil", P_pre, H, torch.linalg.inv(S))
-        resid = zt - torch.einsum("ij,oj->oi", H, x_pre)
-        x_post = x_pre + torch.einsum("oij,oj->oi", K, resid)
-        P_post = P_pre - torch.einsum("oij,jk,okl->oil", K, H, P_pre)
-        x_new = torch.where(okt[:, None], x_post, x_pre)
-        P_new = torch.where(okt[:, None, None], P_post, P_pre)
-        # uninitialised slots stay frozen
-        x = torch.where(inited2[:, None], x_new, x)
-        P = torch.where(inited2[:, None, None], P_new, P)
-        inited = inited2
-        xs.append(x)
-        Ps.append(P)
-        its.append(inited)
-    return torch.stack(xs), torch.stack(Ps), torch.stack(its)
+    carry = (torch.zeros((n_slots, 6), dtype=dtype, device=dev),
+             torch.eye(6, dtype=dtype, device=dev).repeat(n_slots, 1, 1),
+             torch.zeros((n_slots,), dtype=torch.bool, device=dev))
+    return scan(functools.partial(_cv_forward_step,
+                                  process_noise=process_noise,
+                                  meas_noise=meas_noise),
+                carry, z, ok, dts)[1]
 
 
-def _cv_rts(xs, Ps, dts, process_noise):
+def _cv_rts_step(carry, x_k, P_k, dt, *, process_noise):
+    """One step of the constant-velocity RTS recursion, k+1 -> k (``dt``
+    the interval after frame k)."""
+    x_s, P_s = carry
+    dtype, dev = x_k.dtype, x_k.device
+    Q = _cv_process(dev, dtype, float(process_noise))
+    F = _F6(dt, dtype, dev)
+    x_pred = torch.einsum("ij,oj->oi", F, x_k)
+    P_pred = torch.einsum("ij,ojk,lk->oil", F, P_k, F) + Q
+    C = torch.einsum("oij,kj,okl->oil", P_k, F,
+                     torch.linalg.inv_ex(P_pred).inverse)
+    x_s = x_k + torch.einsum("oij,oj->oi", C, x_s - x_pred)
+    P_s = P_k + torch.einsum("oij,ojk,olk->oil", C, P_s - P_pred, C)
+    return (x_s, P_s), (x_s, P_s)
+
+
+def _cv_rts(xs, Ps, dts, process_noise, scan=tree.scan):
     """RTS backward pass for the constant-velocity model."""
-    dtype, dev = xs.dtype, xs.device
-    Q = torch.eye(6, dtype=dtype, device=dev) * process_noise
-    x_s, P_s = xs[-1], Ps[-1]
-    out_x, out_P = [x_s], [P_s]
-    for k in range(xs.shape[0] - 2, -1, -1):
-        x_k, P_k = xs[k], Ps[k]
-        F = _F6(dts[k + 1], dtype, dev)
-        x_pred = torch.einsum("ij,oj->oi", F, x_k)
-        P_pred = torch.einsum("ij,ojk,lk->oil", F, P_k, F) + Q
-        C = torch.einsum("oij,kj,okl->oil", P_k, F, torch.linalg.inv(P_pred))
-        x_s = x_k + torch.einsum("oij,oj->oi", C, x_s - x_pred)
-        P_s = P_k + torch.einsum("oij,ojk,olk->oil", C, P_s - P_pred, C)
-        out_x.append(x_s)
-        out_P.append(P_s)
-    return torch.stack(out_x[::-1]), torch.stack(out_P[::-1])
+    if xs.shape[0] < 2:
+        return xs, Ps
+    _, (x_s, P_s) = scan(functools.partial(_cv_rts_step,
+                                           process_noise=process_noise),
+                         (xs[-1], Ps[-1]), xs[:-1], Ps[:-1], dts[1:],
+                         reverse=True)
+    return torch.cat([x_s, xs[-1:]]), torch.cat([P_s, Ps[-1:]])
 
 
 def _slerp(q0, q1, w):
@@ -284,23 +313,22 @@ def _slerp(q0, q1, w):
         torch.linalg.vector_norm(q, dim=-1, keepdim=True), 1e-12)
 
 
-def _quat_gap_interp(quats, ok):
+def _align_step(carry, q, okt):
+    """Sign alignment along time (q and -q are the same rotation): the
+    frame's quaternion, flipped towards the carried one where measured."""
+    s = torch.sign((q * carry).sum(-1, keepdim=True))
+    s = torch.where(s == 0, 1.0, s)
+    carry = torch.where(okt[:, None], s * q, carry)
+    return carry, carry
+
+
+def _quat_gap_interp(quats, ok, scan=tree.scan):
     """Per-slot time interpolation of measured quaternions: each frame's
     orientation is the SLERP between its nearest measured neighbours
     (clamped at the edges).  quats: (T, I, 4); ok: (T, I)."""
     T = quats.shape[0]
     dev = quats.device
-
-    # sequential sign alignment along time (q and -q are the same rotation)
-    carry = quats[0]
-    aligned = []
-    for k in range(T):
-        q, okt = quats[k], ok[k]
-        s = torch.sign((q * carry).sum(-1, keepdim=True))
-        s = torch.where(s == 0, 1.0, s)
-        carry = torch.where(okt[:, None], s * q, carry)
-        aligned.append(carry)
-    qa = torch.stack(aligned)
+    _, qa = scan(_align_step, quats[0], quats, ok)
 
     idx = torch.arange(T, device=dev)[:, None]                      # (T, 1)
     prev = torch.cummax(torch.where(ok, idx, -1), dim=0).values     # (T, I)
@@ -320,11 +348,19 @@ def _quat_gap_interp(quats, ok):
     return _slerp(q_prev, q_next, w[..., None])
 
 
+def _associate_step(state, fit_t, fit_R, fit_rms, fit_valid, dt, **kw):
+    """One frame of the smoother's association: (state, the slots'
+    associated measurements (pos, quat, ok))."""
+    state, (_, m) = update(state, fit_t, fit_R, fit_rms, fit_valid, dt,
+                           return_meas=True, **kw)
+    return state, m
+
+
 def smooth_body_sequence(fit_t, fit_R, fit_rms, fit_valid, dts,
                          max_bodies: int, *, process_noise: float = 1e-2,
                          meas_noise: float = 1e-4, gate_m: float = 0.15,
                          rms_max: float = 0.02, max_missed: int = 30,
-                         ) -> SmoothedBodies:
+                         scan=tree.scan) -> SmoothedBodies:
     """Offline fixed-interval smoothing of 6-DoF body tracks.
 
     fit_*: (T, F, ...) per-frame ``locate_bodies`` outputs over a
@@ -333,23 +369,21 @@ def smooth_body_sequence(fit_t, fit_R, fit_rms, fit_valid, dts,
     occlusion beats spawning a new slot); a constant-velocity Kalman
     forward and RTS backward pass smooth the associated positions; SLERP
     between the nearest measured orientations fills each frame.  ``valid``
-    marks frames within a track's [first, last] sighting.
+    marks frames within a track's [first, last] sighting.  ``scan``: the
+    runner of its four loops (``utils.tree.scan``'s signature).
     """
     dev = fit_t.device
-    st = init_state(max_bodies, device=dev)
-    meas = []
-    for k in range(fit_t.shape[0]):
-        st, (_, m) = update(st, fit_t[k], fit_R[k], fit_rms[k], fit_valid[k],
-                            dts[k], gate_m=gate_m, rms_max=rms_max,
-                            max_missed=max_missed, return_meas=True)
-        meas.append(m)
-    m_pos, m_quat, m_ok = (torch.stack(x) for x in zip(*meas))
+    _, (m_pos, m_quat, m_ok) = scan(
+        functools.partial(_associate_step, gate_m=gate_m, rms_max=rms_max,
+                          max_missed=max_missed),
+        init_state(max_bodies, device=dev), fit_t, fit_R, fit_rms,
+        fit_valid, dts)
 
     m_pos = torch.where(m_ok[..., None], m_pos, 0.0)
     xs, Ps, inited = _cv_forward(m_pos, m_ok, dts, process_noise,
-                                 meas_noise)
-    xs_s, _ = _cv_rts(xs, Ps, dts, process_noise)
-    quat_s = _quat_gap_interp(m_quat, m_ok)
+                                 meas_noise, scan)
+    xs_s, _ = _cv_rts(xs, Ps, dts, process_noise, scan)
+    quat_s = _quat_gap_interp(m_quat, m_ok, scan)
 
     seen_fwd = inited                                   # first sighting on
     seen_bwd = torch.flip(torch.cumsum(torch.flip(m_ok, [0]).to(torch.int32),

@@ -134,13 +134,14 @@ def _hypothesis_tables(C: int, n_opt: int):
     return onehot, use_tab, self_tab, rc_onehot, rc_of_h
 
 
-@functools.lru_cache(maxsize=32)
+@functools.cache
 def _hypothesis_tables_on(C: int, n_opt: int, device: torch.device):
     """``_hypothesis_tables`` on ``device``, built once per (C, n_opt,
     device): (onehot, self_tab, msk_tab = self | use, rc_onehot, n_later
     (H,) f32, the later cameras of each hypothesis' root camera).  An
     upload per call would be a host-to-device copy on every served frame,
-    which a CUDA graph cannot capture."""
+    which a CUDA graph cannot capture; kept for the life of the process,
+    since a captured graph reads them by address."""
     onehot, use_np, self_np, rc_oh, rc_of_h = _hypothesis_tables(C, n_opt)
     n_later = (C - 1 - rc_of_h).astype(np.float32)
     return tuple(torch.from_numpy(a).to(device) for a in (

@@ -60,8 +60,10 @@ def fused_preprocess_kernel(blur_ksize: int = 9,
     return convolve2d(SHARPEN_KERNEL, g2, mode="full").astype(np.float32)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.cache
 def _preprocess_weight(blur_ksize: int, sigma: float, device: torch.device):
+    """The fused kernel on ``device``, kept for the life of the process (a
+    captured graph reads it by address)."""
     k = torch.from_numpy(fused_preprocess_kernel(blur_ksize, sigma))
     return k[None, None].to(device)                 # (1, 1, kh, kw)
 

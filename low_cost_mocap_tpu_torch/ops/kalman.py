@@ -5,7 +5,9 @@ objects are one batch axis; the JAX package vmaps them), the offline
 filter ``track_sequence`` and the fixed-interval Rauch-Tung-Striebel
 smoothers ``rts_smooth`` (a backward loop) and ``rts_smooth_assoc`` (the
 same recursion as affine maps composed by a log-depth scan), with
-``smooth_sequence`` running a forward pass and the smoother.
+``smooth_sequence`` running a forward pass and the smoother.  The
+smoothers take their loop runner (``scan``, ``utils.tree.scan`` by
+default), so the offline path can run each loop as a replayed graph.
 
 ``update`` on the serving options (``report`` "pre"/"post", no advance on
 a miss, no covariance output) is the plain PyTorch version of the bank
@@ -29,6 +31,7 @@ velocity; state committed only on frames with a detection (or, with
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -71,6 +74,26 @@ def init_state(num_objects: int, device=None,
     )
 
 
+@functools.cache
+def _constants(device: torch.device, dtype, meas_noise: float):
+    """(r, b, a) on ``device``: the measurement noise and the Butterworth
+    coefficients, uploaded once a device, so that no step uploads (a CUDA
+    graph cannot hold an upload from pageable memory).  Kept for the life
+    of the process: a captured graph reads them by address."""
+    b_np, a_np = lowpass.butter_coeffs()
+    return (torch.tensor(meas_noise, dtype=dtype, device=device),
+            torch.from_numpy(b_np).to(device), torch.from_numpy(a_np).to(device))
+
+
+@functools.cache
+def _process(device: torch.device, dtype, process_noise: float):
+    """(Q, I9) on ``device``: the process noise ``process_noise * I9`` and
+    the identity, made once a device rather than at every frame; kept as
+    ``_constants`` is."""
+    eye = torch.eye(9, dtype=dtype, device=device)
+    return eye * process_noise, eye
+
+
 def _f_rows(m, dt, hdt2):
     """F @ m along axis 1 of (O, 9, ...): the CA-model transition as slice
     arithmetic."""
@@ -103,11 +126,8 @@ def update(state: KalmanState, cand_pos, cand_heading, cand_index,
     O = x.shape[0]
     dev, dtype = x.device, x.dtype
     dt = torch.as_tensor(dt, dtype=dtype, device=dev)
-    Q = torch.eye(9, dtype=dtype, device=dev) * process_noise
-    r = torch.tensor(meas_noise, dtype=dtype, device=dev)
-    b_np, a_np = lowpass.butter_coeffs()
-    b = torch.from_numpy(b_np).to(dev)
-    a = torch.from_numpy(a_np).to(dev)
+    Q, eye9 = _process(dev, dtype, float(process_noise))
+    r, b, a = _constants(dev, dtype, float(meas_noise))
 
     ids = torch.arange(O, device=dev)
     mine = cand_valid[None, :] & (cand_index[None, :] == ids[:, None])  # (O,M)
@@ -156,8 +176,7 @@ def update(state: KalmanState, cand_pos, cand_heading, cand_index,
     reseed_all = reseed & inited
     x_seed = torch.cat([new_pos, torch.zeros_like(x[:, 3:])], dim=1)
     x_post = torch.where(reseed_all[:, None], x_seed, x_post)
-    P_post = torch.where(reseed_all[:, None, None],
-                         torch.eye(9, dtype=dtype, device=dev), P_post)
+    P_post = torch.where(reseed_all[:, None, None], eye9, P_post)
 
     x_rep = x_pre if report == "pre" else x_post
     x_rep = torch.where(reseed_all[:, None], x_post, x_rep)
@@ -231,7 +250,23 @@ def _transition(dt):
     return F
 
 
-def rts_smooth(xs, Ps, dts, *, process_noise: float = 1e-2):
+def _rts_step(carry, x_k, P_k, Fk, *, process_noise: float):
+    """One step of the RTS backward recursion: (x_s, P_s) at k+1 -> at k,
+    as both the carry and the output."""
+    x_s, P_s = carry
+    Q = _process(x_k.device, x_k.dtype, float(process_noise))[0]
+    x_pred = torch.einsum("ij,oj->oi", Fk, x_k)
+    P_pred = torch.einsum("ij,ojk,lk->oil", Fk, P_k, Fk) + Q
+    # inv_ex: no check that reads the result back to the host
+    C = torch.einsum("oij,kj,okl->oil", P_k, Fk,
+                     torch.linalg.inv_ex(P_pred).inverse)
+    x_s = x_k + torch.einsum("oij,oj->oi", C, x_s - x_pred)
+    P_s = P_k + torch.einsum("oij,ojk,olk->oil", C, P_s - P_pred, C)
+    return (x_s, P_s), (x_s, P_s)
+
+
+def rts_smooth(xs, Ps, dts, *, process_noise: float = 1e-2,
+               scan=tree.scan):
     """Fixed-interval Rauch-Tung-Striebel smoother over filtered states.
 
     xs: (T, O, 9) filtered means, Ps: (T, O, 9, 9) filtered covariances,
@@ -241,22 +276,16 @@ def rts_smooth(xs, Ps, dts, *, process_noise: float = 1e-2):
     frame the filtered one.  Per k = T-2 .. 0, batched over the objects:
     P_pred = F P_k F' + Q, C = P_k F' P_pred^-1, x_s[k] = x[k] + C
     (x_s[k+1] - F x[k]), P_s[k] = P_k + C (P_s[k+1] - P_pred) C'.
+    ``scan``: the loop runner, ``utils.tree.scan``'s signature (the
+    offline path passes a compiled one).
     """
-    Q = torch.eye(9, dtype=xs.dtype, device=xs.device) * process_noise
+    if xs.shape[0] < 2:
+        return xs, Ps
     F = _transition(dts[1:])                                  # (T-1, 9, 9)
-    x_s, P_s = xs[-1], Ps[-1]
-    out_x, out_P = [x_s], [P_s]
-    for k in range(xs.shape[0] - 2, -1, -1):
-        x_k, P_k, Fk = xs[k], Ps[k], F[k]
-        x_pred = torch.einsum("ij,oj->oi", Fk, x_k)
-        P_pred = torch.einsum("ij,ojk,lk->oil", Fk, P_k, Fk) + Q
-        C = torch.einsum("oij,kj,okl->oil", P_k, Fk,
-                         torch.linalg.inv(P_pred))
-        x_s = x_k + torch.einsum("oij,oj->oi", C, x_s - x_pred)
-        P_s = P_k + torch.einsum("oij,ojk,olk->oil", C, P_s - P_pred, C)
-        out_x.append(x_s)
-        out_P.append(P_s)
-    return torch.stack(out_x[::-1]), torch.stack(out_P[::-1])
+    _, (x_s, P_s) = scan(
+        functools.partial(_rts_step, process_noise=process_noise),
+        (xs[-1], Ps[-1]), xs[:-1], Ps[:-1], F, reverse=True)
+    return torch.cat([x_s, xs[-1:]]), torch.cat([P_s, Ps[-1:]])
 
 
 def rts_elements(xs, Ps, dts, *, process_noise: float = 1e-2):
@@ -312,26 +341,32 @@ def rts_smooth_assoc(xs, Ps, dts, *, process_noise: float = 1e-2):
     return (torch.cat([xs_s, xs[-1:]]), torch.cat([Ps_s, Ps[-1:]]))
 
 
+def _forward_step(state, cand_pos, cand_heading, cand_index, cand_valid,
+                  dt, **kw):
+    """One frame of the smoother's forward filter: (state, ((tracked, x,
+    P), initialised))."""
+    state, out = update(state, cand_pos, cand_heading, cand_index,
+                        cand_valid, dt, report="post", advance_on_miss=True,
+                        return_cov=True, **kw)
+    return state, (out, state.initialized)
+
+
 def smooth_sequence(state: KalmanState, cand_pos_seq, cand_heading_seq,
                     cand_index_seq, cand_valid_seq, dts, *,
-                    process_noise: float = 1e-2, **kw):
+                    process_noise: float = 1e-2, scan=tree.scan, **kw):
     """Forward filter (``advance_on_miss``, ``report="post"``, covariances
     kept) and the RTS backward pass over a recorded sequence.  Returns
     (TrackedObjects (T, O, ...) of smoothed positions and velocities, the
     forward pass's filtered headings, and ``valid`` = the track is
     initialised — gap frames carry interpolated states; xs_smooth
-    (T, O, 9))."""
-    outs, inited = [], []
-    for t in range(cand_pos_seq.shape[0]):
-        state, out = update(state, cand_pos_seq[t], cand_heading_seq[t],
-                            cand_index_seq[t], cand_valid_seq[t], dts[t],
-                            process_noise=process_noise, report="post",
-                            advance_on_miss=True, return_cov=True, **kw)
-        outs.append(out)
-        inited.append(state.initialized)
-    tracked, xs, Ps = tree.stack(outs)
-    inited = torch.stack(inited)
-    xs_s, _ = rts_smooth(xs, Ps, dts, process_noise=process_noise)
+    (T, O, 9)).  ``scan``: the loop runner of both passes
+    (``utils.tree.scan``'s signature)."""
+    _, ((tracked, xs, Ps), inited) = scan(
+        functools.partial(_forward_step, process_noise=process_noise, **kw),
+        state, cand_pos_seq, cand_heading_seq, cand_index_seq,
+        cand_valid_seq, dts)
+    xs_s, _ = rts_smooth(xs, Ps, dts, process_noise=process_noise,
+                         scan=scan)
     smoothed = TrackedObjects(
         pos=torch.where(inited[..., None], xs_s[..., :3], 0.0),
         vel=torch.where(inited[..., None], xs_s[..., 3:6], 0.0),

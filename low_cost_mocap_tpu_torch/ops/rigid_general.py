@@ -108,10 +108,11 @@ class LocatedBodies(NamedTuple):
     valid: torch.Tensor      # (I,)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.cache
 def _template_on(template: BodyTemplate, device: torch.device):
     """The template's (M, 3) markers, (M, M) distances and (S, 3, 3) seed
-    anchor triples on ``device``."""
+    anchor triples on ``device``, kept for the life of the process (a
+    captured graph reads them by address)."""
     tmpl = torch.tensor(template.markers, dtype=torch.float32, device=device)
     Dt = torch.linalg.vector_norm(tmpl[:, None] - tmpl[None, :], dim=-1)
     anchors = torch.stack([tmpl[list(abc)] for abc in template.seeds])

@@ -11,6 +11,12 @@ tail — ``models.pipeline.track_from_blobs``, or ``scan_track_from_blobs``
 over a batch with the ``kalman_bank`` kernel once — runs on the gathered
 blobs.
 
+These functions run op by op: the reference of the Engine's camera-sharded
+steps, which capture ``detect_gather`` and the tail as CUDA graphs
+(``runtime/engine.py``).  A graph holds its buffers' addresses, so unlike
+the JAX package's ``lru_cache`` of compiled programs a graph is not shared
+between callers: each Engine keeps its own, one per kind of step.
+
 The JAX step runs the tail replicated on every device.  Here it runs once
 per process, on the mesh's first device, and returns its results there:
 in one process that is the one copy, and across processes every rank runs
@@ -32,7 +38,7 @@ from low_cost_mocap_tpu_torch.ops import detect, detect_cuda
 from low_cost_mocap_tpu_torch.parallel.mesh import Mesh, shard_along
 
 
-def _detect_shard(frames, cfg, packed: bool):
+def detect_shard(frames, cfg, packed: bool):
     """One shard's (..., C/d, H, W[/8]) frames -> (..., C/d, K, 3)
     [x, y, valid] float32 blobs: one detection launch over every frame of
     the shard."""
@@ -51,17 +57,27 @@ def _detect_shard(frames, cfg, packed: bool):
     return out.reshape(*lead, *out.shape[-2:])
 
 
+def detect_gather(mesh: Mesh, shards, cfg, *, packed: bool = False,
+                  dim: int = 0) -> torch.Tensor:
+    """This process's shards (each (..., C/d, H, W[/8]) on its device, in
+    shard order, the camera axis at ``dim``) detected each on its device
+    and gathered in camera order on the tail device: (..., C, K, 3)
+    [x, y, valid].  On one device it holds no host read, so a graph can
+    capture it (``runtime/engine.py``'s mesh steps)."""
+    parts = [detect_shard(s, cfg, packed) for s in shards]
+    g = mesh.gather(parts)                       # (d, ..., C/d, K, 3)
+    # shards along the camera axis, in order: camera c = shard c // (C/d)
+    g = torch.movedim(g, 0, dim)                 # (..., d, C/d, K, 3)
+    return g.reshape(*g.shape[:dim], -1, *g.shape[dim + 2:])
+
+
 def gather_blobs(mesh: Mesh, frames, cfg, *, axis: str = "cam",
                  packed: bool = False, dim: int = 0) -> torch.Tensor:
     """Detect each shard's cameras on its device and gather the blobs in
     camera order on the tail device: frames (..., C, H, W[/8]) with the
     camera axis at ``dim`` -> (..., C, K, 3) [x, y, valid]."""
-    shards = shard_along(mesh, axis, frames, dim=dim)
-    parts = [_detect_shard(s, cfg, packed) for s in shards]
-    g = mesh.gather(parts)                       # (d, ..., C/d, K, 3)
-    # shards along the camera axis, in order: camera c = shard c // (C/d)
-    g = torch.movedim(g, 0, dim)                 # (..., d, C/d, K, 3)
-    return g.reshape(*g.shape[:dim], -1, *g.shape[dim + 2:])
+    return detect_gather(mesh, shard_along(mesh, axis, frames, dim=dim),
+                         cfg, packed=packed, dim=dim)
 
 
 def dist_frame_step(mesh: Mesh, state, frames, dt, Ps, K, dist,

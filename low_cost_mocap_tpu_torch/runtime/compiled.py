@@ -28,29 +28,56 @@ back to launching the step op by op.  Its outputs are tensors of the
 graph's memory pool that the next replay overwrites, so a caller reads
 them, or enqueues their copy on the same stream, before the next call.
 On the CPU the same buffers serve an eager call of ``fn``, with the same
-donation.
+donation; so does every call inside ``disable_graphs()`` (the counterpart
+of ``jax.disable_jit``), on its thread: the reference a graph is held to.
 
 The kernel wrappers count the launches made from Python: a capture's
 count is taken back (it launched nothing) and added again at each replay.
 ``replays`` counts the graph replays, ``warmup_launches`` the kernel
 launches of the warm-up calls.
+
+``ChunkedScan`` runs a per-frame loop over a recording of any length T as
+one ``CompiledStep`` of a fixed number of frames, replayed once a chunk
+(the JAX package's ``lax.scan`` inside a jitted program, without a program
+per T); ``GraphCache`` keeps such steps, at most ``CACHE_SIZE`` of them,
+as JAX's ``lru_cache(maxsize=16)`` keeps compiled programs.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import functools
+import threading
 import time
 
 import numpy as np
 import torch
 
 from low_cost_mocap_tpu_torch.ops import detect_cuda, kalman_cuda
-from low_cost_mocap_tpu_torch.utils.tree import leaves, tree_map
+from low_cost_mocap_tpu_torch.utils.tree import leaves, scan, tree_map
 
 WARMUP_CALLS = 3
+CACHE_SIZE = 16
 _WRAPPERS = (detect_cuda, kalman_cuda)
 
 replays = 0
 warmup_launches = {w.NAME: 0 for w in _WRAPPERS}
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def disable_graphs():
+    """On this thread, every ``CompiledStep`` call in the block runs its
+    step op by op over its buffers (``CompiledStep.eager``): no capture, no
+    replay.  The reference the graphs are held to, as ``jax.disable_jit``
+    is JAX's."""
+    before = getattr(_local, "eager", False)
+    _local.eager = True
+    try:
+        yield
+    finally:
+        _local.eager = before
 
 
 def assign(dst, src) -> None:
@@ -89,9 +116,10 @@ class CompiledStep:
     the card, run eagerly on the CPU, over the given buffers.
 
     ``state``: a tree of tensors, donated: a call leaves the new state in
-    these tensors.  ``args``: one buffer (a tensor, or a tree of them) for
-    each of ``fn``'s other arguments.  Every buffer lies on one device and
-    keeps its shape and dtype: a call that gives another raises.
+    these tensors (``()`` for a step without state).  ``args``: one buffer
+    (a tensor, or a tree of them) for each of ``fn``'s other arguments.
+    Every buffer lies on one device and keeps its shape and dtype: a call
+    that gives another raises.
 
     After the capture ``capture_ms`` is its wall time (the warm-up
     excluded) and ``pool_bytes`` the device memory its pool reserved;
@@ -103,7 +131,7 @@ class CompiledStep:
         self.name = name
         self.state = state
         self.args = args
-        self.device = leaves(state)[0].device
+        self.device = leaves((state, args))[0].device
         self.graph = None
         self.out = None
         self.capture_ms = None
@@ -116,7 +144,7 @@ class CompiledStep:
         the step's outputs): the graph's replay on the card, ``eager`` on
         the CPU."""
         global replays
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or getattr(_local, "eager", False):
             return self.eager(state, *args)
         self._load(state, args)
         if self.graph is None:
@@ -178,3 +206,86 @@ class CompiledStep:
         self.launches_per_replay = captured
         self.graph, self.out = graph, out
 
+
+class GraphCache:
+    """Compiled steps by key, the ``CACHE_SIZE`` most recently used: a new
+    key beyond that drops the least recently used step and its graph.  It
+    takes no lock: its user serialises the calls that use it (the steps'
+    buffers are shared too)."""
+
+    def __init__(self, size: int = CACHE_SIZE):
+        self.size = size
+        self._steps: collections.OrderedDict = collections.OrderedDict()
+
+    def get(self, key, build):
+        """The step for ``key``, built by ``build()`` at its first use."""
+        step = self._steps.pop(key, None)
+        if step is None:
+            step = build()
+        self._steps[key] = step
+        while len(self._steps) > self.size:
+            self._steps.popitem(last=False)
+        return step
+
+    def __len__(self) -> int:
+        return len(self._steps)
+
+    def values(self) -> list:
+        return list(self._steps.values())
+
+    def clear(self) -> None:
+        self._steps.clear()
+
+
+class ChunkedScan:
+    """A per-frame loop ``step(carry, *x_k) -> (carry, y_k)`` over T frames,
+    whatever T, as one ``CompiledStep`` of ``length`` frames replayed once
+    a chunk.
+
+    Built from an example ``carry`` and example sequences ``xs`` ((T, ...)
+    tensors; only their trailing shapes, dtypes and device count).  ``run``
+    copies each chunk of the sequences into the step's buffers and the
+    chunk's ys out of the graph's memory into (T, ...) tensors of its own.
+    The chunk past the end (the one before the start with ``reverse``,
+    where the loop runs from the last frame to the first) is padded with
+    zeros; its padded frames run after every real frame, so no returned y
+    depends on them, and the carry after them is not returned.  A step
+    that reads a value to the host cannot be captured: the capture raises.
+    The buffers are the step's: its user runs one ``run`` at a time.
+    """
+
+    def __init__(self, step, carry, xs, length: int, *, reverse=False,
+                 name: str = "scan"):
+        self.length = int(length)
+        self.reverse = reverse
+        bufs = tuple(torch.zeros((self.length,) + tuple(x.shape[1:]),
+                                 dtype=x.dtype, device=x.device) for x in xs)
+        self.step = CompiledStep(
+            functools.partial(scan, step, reverse=reverse),
+            tree_map(torch.clone, carry), *bufs, name=name)
+
+    def run(self, carry, *xs):
+        """The ys of the loop (``utils.tree.scan``) from ``carry`` over
+        ``xs`` ((T, ...) tensors, T >= 1) as (T, ...) tensors; the chunks
+        in loop order."""
+        T, L = xs[0].shape[0], self.length
+        ys, state = None, carry
+        for c in range(-(-T // L)):
+            lo = T - (c + 1) * L if self.reverse else c * L
+            a, b = max(lo, 0), min(lo + L, T)
+            state, out = self.step(state, *(
+                x[a:b] if b - a == L else _padded(x, a, b, a - lo, L)
+                for x in xs))
+            if ys is None:
+                ys = tree_map(
+                    lambda y: y.new_empty((T,) + tuple(y.shape[1:])), out)
+            for dst, y in zip(leaves(ys), leaves(out)):
+                dst[a:b].copy_(y[a - lo:b - lo])
+        return ys
+
+
+def _padded(x, a, b, at, length):
+    """Frames a..b of ``x`` at offset ``at`` of ``length`` zero frames."""
+    out = x.new_zeros((length,) + tuple(x.shape[1:]))
+    out[at:at + b - a] = x[a:b]
+    return out

@@ -21,20 +21,28 @@ Ingest paths, chosen at construction (the JAX engine's choice):
   frames go up whole, and with ``preprocess_frames`` are blurred and
   sharpened on the card before detection;
 - **camera-sharded** (``mesh`` with a ``cam`` axis): frames are packed to
-  1 bit on the host, each shard of cameras goes to its device and is
-  detected there by the ``detect_blobs`` kernel, and the blobs meet on
-  the mesh's first device, the engine's, for the tail
-  (``parallel/dist_pipeline.py``); with ``dispatch_batch`` = B > 1, one
-  ``dist_scan_frame_step`` per B frames.
+  1 bit on the host into a page-locked buffer laid out shard by shard,
+  each shard of cameras goes to its device and is detected there by the
+  ``detect_blobs`` kernel, and the blobs meet on the mesh's first device,
+  the engine's, for the tail (``parallel/dist_pipeline.py``); with
+  ``dispatch_batch`` = B > 1, one batched step per B frames.
 
-Every step but the camera-sharded one is compiled (``runtime/compiled.py``,
-the counterpart of the JAX engine's ``_build_steps``): on the card a CUDA
-graph per kind of frame (host blobs, sparse, packed, dense, and the
+Every step is compiled (``runtime/compiled.py``, the counterpart of the
+JAX engine's ``_build_steps`` and of its camera-sharded
+``_compiled_dist_step``/``_compiled_dist_scan_step``): on the card a CUDA
+graph per kind of frame (host blobs, sparse, packed, dense, mesh, and the
 batched program), captured at its first frame and replayed at every frame
-(or batch), over static buffers for the payload, ``dt``, the tracker state
-(donated: ``_kalman_state`` is the buffers) and the calibration (changed
-in place by ``set_calibration``); on the CPU the same buffers serve the
-step eagerly.  A capture that fails raises.
+(or batch), over static buffers for the payload (a shard's frames on the
+shard's device), ``dt``, the tracker state (donated: ``_kalman_state`` is
+the buffers) and the calibration (changed in place by
+``set_calibration``); on the CPU the same buffers serve the step eagerly.
+A capture that fails raises.  The camera-sharded step is one graph when
+every shard is on the engine's card, and a graph a shard device plus the
+tail's graph when the shards are on several cards (``_ShardedStep``).  A
+mesh across processes (a ``torch.distributed`` group) runs its step op by
+op, by construction: its gather is a collective, and gloo's cannot be
+captured.  The steps are the engine's own, one per kind, and a rebuild
+replaces them.
 
 Each step's outputs come back as one packed row per frame.  With
 ``readback_pipeline_depth`` = d > 0 the row's copy into a page-locked host
@@ -103,7 +111,7 @@ from low_cost_mocap_tpu_torch.ops.detect import (pack_frames, sparse_ingest,
 from low_cost_mocap_tpu_torch.ops.rigid_general import learn_template
 from low_cost_mocap_tpu_torch.ops.rotations import quat_to_matrix_np
 from low_cost_mocap_tpu_torch.parallel.dist_pipeline import (
-    dist_frame_step, dist_scan_frame_step)
+    detect_gather, detect_shard, dist_frame_step, dist_scan_frame_step)
 from low_cost_mocap_tpu_torch.runtime import compiled
 from low_cost_mocap_tpu_torch.runtime.health import CameraHealthMonitor
 from low_cost_mocap_tpu_torch.utils import artifacts, profiling
@@ -121,11 +129,12 @@ class _HostRing:
     without any error.  On a CPU engine the buffers are plain tensors and
     every copy completes at once."""
 
-    def __init__(self, n: int, shape, device: torch.device):
+    def __init__(self, n: int, shape, device: torch.device,
+                 dtype=torch.float32):
         self.cuda = device.type == "cuda"
         self.device = device
-        self.bufs = [torch.zeros(shape, dtype=torch.float32,
-                                 pin_memory=self.cuda) for _ in range(n)]
+        self.bufs = [torch.zeros(shape, dtype=dtype, pin_memory=self.cuda)
+                     for _ in range(n)]
         if self.cuda and not all(b.is_pinned() for b in self.bufs):
             raise RuntimeError("host buffers are not page-locked")
         self.events = ([torch.cuda.Event() for _ in range(n)]
@@ -311,18 +320,20 @@ class Engine:
         self._cutoff = threshold_cutoff(cfg.detect_threshold)
         C, K = rig.num_cameras, cfg.max_blobs
         # host buffers for host-detect ingest: one frame set, or two
-        # batches so one fills while the other's upload may be in flight
-        self._ingest_ring = self._mesh_batch = None
-        if self._batch > 1 and mesh is not None:
-            # a batch of packed frame sets; each shard's upload copies its
-            # cameras out before the next batch fills the buffer again
+        # batches so one fills while the other's upload may be in flight;
+        # in mesh mode the packed frames, shard by shard: (d, [B,] C/d,
+        # H, W/8), so each shard's part is one contiguous upload
+        self._ingest_ring = None
+        lead = (self._batch,) if self._batch > 1 else ()
+        if mesh is not None:
             H, W = rig.image_hw()
-            self._mesh_batch = np.zeros((self._batch, C, H, W // 8),
-                                        np.uint8)
-        elif self._batch > 1:
-            self._ingest_ring = _HostRing(2, (self._batch, C, K, 3), dev)
-        elif self._host_detect:
-            self._ingest_ring = _HostRing(4, (C, K, 3), dev)
+            d = mesh.shape["cam"]
+            self._ingest_ring = _HostRing(
+                2 if self._batch > 1 else 4,
+                (d,) + lead + (C // d, H, W // 8), dev, torch.uint8)
+        elif self._batch > 1 or self._host_detect:
+            self._ingest_ring = _HostRing(2 if self._batch > 1 else 4,
+                                          lead + (C, K, 3), dev)
         self._configure_step()
         self._pending: collections.deque = collections.deque()
         self._batch_slot: int | None = None    # ingest slot being filled
@@ -380,15 +391,14 @@ class Engine:
     def _build_steps(self) -> dict:
         """One compiled step for each kind of frame this engine takes, over
         the tracker state ``_kalman_state`` and the calibration buffers,
-        each captured at its first frame.  The camera-sharded step stays
-        eager (none here): its counterpart runs a graph on every shard's
-        device and the gather between them."""
-        if self._mesh is not None:
-            return {}
+        each captured at its first frame.  A mesh across processes has
+        none: its step runs op by op (``_step``)."""
         rig, cfg, dev = self.rig, self.cfg, self.device
         C, K = rig.num_cameras, cfg.max_blobs
         H, W = rig.image_hw()
         state, cal = self._kalman_state, self._calibration()
+        if self._mesh is not None:
+            return {} if self._mesh.distributed else self._mesh_steps()
 
         def frame_kind(name, payload, **ingest):
             return compiled.CompiledStep(
@@ -398,7 +408,7 @@ class Engine:
         if self._batch > 1:
             return {"batched": _ScanStep(
                 state, _f32((self._batch, C, K, 3), dev),
-                _f32((self._batch,), dev), cal, self._tail_kw)}
+                _f32((self._batch,), dev), cal, self._tail_kw, C * K)}
         if self._host_detect:
             return {"blobs": compiled.CompiledStep(
                 functools.partial(_tail_row, **self._tail_kw), state,
@@ -414,6 +424,39 @@ class Engine:
                         packed_input=True)}
         return {"dense": frame_kind("dense", torch.zeros(
             (C, H, W), dtype=torch.uint8, device=dev))}
+
+    def _mesh_steps(self) -> dict:
+        """The camera-sharded step, per frame ("mesh") or batched: each
+        shard's packed frames in a buffer on its device.  One step over
+        every shard when they all lie on the engine's device; else a
+        ``_ShardedStep``."""
+        rig, cfg, dev, B = self.rig, self.cfg, self.device, self._batch
+        C, K = rig.num_cameras, cfg.max_blobs
+        H, W = rig.image_hw()
+        state, cal = self._kalman_state, self._calibration()
+        shards = self._mesh.axis_shards("cam")
+        lead = (B,) if B > 1 else ()
+        bufs = tuple(torch.zeros(lead + (C // len(shards), H, W // 8),
+                                 dtype=torch.uint8, device=sdev)
+                     for _, sdev in shards)
+        kw = dict(mesh=self._mesh, cfg=cfg)
+        if all(_same_device(sdev, dev) for _, sdev in shards):
+            if B > 1:
+                return {"batched": _ScanStep(
+                    state, bufs, _f32((B,), dev), cal, self._tail_kw, C * K,
+                    head=functools.partial(_mesh_scan_rows, **kw))}
+            return {"mesh": compiled.CompiledStep(
+                functools.partial(_mesh_row, **kw, **self._tail_kw), state,
+                bufs, _f32((), dev), *cal, name="mesh")}
+        if B > 1:
+            tail = _ScanStep(state, _f32((B, C, K, 3), dev), _f32((B,), dev),
+                             cal, self._tail_kw, C * K)
+        else:
+            tail = compiled.CompiledStep(
+                functools.partial(_tail_row, **self._tail_kw), state,
+                _f32((C, K, 3), dev), _f32((), dev), *cal, name="mesh tail")
+        return {"batched" if B > 1 else "mesh": _ShardedStep(
+            [sdev for _, sdev in shards], bufs, tail, cfg, dim=len(lead))}
 
     def _apply_rig(self, rig: RigConfig) -> None:
         """Serve ``rig`` (new body templates) from the next frame on: a new
@@ -1268,10 +1311,12 @@ class Engine:
         slot = None
         with self.timer.stage("ingest"):
             if self._mesh is not None:
-                # 1-bit packed on the host; each shard uploads its cameras
+                # 1-bit packed on the host, shard by shard; the step
+                # uploads each shard's part to its device
+                slot = self._ingest_ring.acquire()
+                self._ingest_mesh(frames, slot)
+                payload = self._ingest_ring.bufs[slot]
                 kind = "mesh"
-                payload = torch.from_numpy(
-                    pack_frames(frames, self.cfg.detect_threshold))
             elif self._host_detect:
                 slot = self._ingest_ring.acquire()
                 self._ingest_host_detect(frames, slot)
@@ -1311,15 +1356,30 @@ class Engine:
             self._last_out = out
         return out
 
+    def _ingest_mesh(self, frames: np.ndarray, slot: int,
+                     row: int | None = None) -> None:
+        """1-bit pack a frame set into an ingest slot (into row ``row`` of
+        each shard's part of a batch slot), shard by shard."""
+        buf = self._ingest_ring.bufs[slot].numpy()
+        if row is not None:
+            buf = buf[:, row]
+        buf[...] = pack_frames(frames, self.cfg.detect_threshold).reshape(
+            buf.shape)
+
     def _step(self, kind: str, payload: torch.Tensor, dt32):
         """One frame's step on the device (under the model lock): (the
-        state, its packed row)."""
+        state, its packed row).  A mesh payload is the (d, C/d, H, W/8)
+        ingest slot: its shards go to the compiled step, or whole to the
+        op-by-op step of a mesh across processes."""
         cal = self._calibration()
-        if kind == "mesh":
-            state, out = dist_frame_step(self._mesh, self._kalman_state,
-                                         payload, dt32, *cal, self.rig,
-                                         self.cfg, packed=True, with_obs=True)
+        if kind == "mesh" and self._mesh.distributed:
+            state, out = dist_frame_step(
+                self._mesh, self._kalman_state,
+                payload.reshape(-1, *payload.shape[2:]), dt32, *cal,
+                self.rig, self.cfg, packed=True, with_obs=True)
             return state, pack_outputs(out)
+        if kind == "mesh":
+            payload = tuple(payload)
         return self._steps[kind](self._kalman_state, payload, dt32, *cal)
 
     def _run_batched(self, frames: np.ndarray, dt32):
@@ -1335,12 +1395,11 @@ class Engine:
         with self._model_lock:
             with self.timer.stage("batch-ingest"):
                 i = len(self._batch_dts)
+                if self._batch_slot is None:
+                    self._batch_slot = self._ingest_ring.acquire()
                 if self._mesh is not None:
-                    self._mesh_batch[i] = pack_frames(
-                        frames, self.cfg.detect_threshold)
+                    self._ingest_mesh(frames, self._batch_slot, i)
                 else:
-                    if self._batch_slot is None:
-                        self._batch_slot = self._ingest_ring.acquire()
                     self._ingest_host_detect(frames, self._batch_slot, i)
                 self._batch_dts.append(dt32)
             if len(self._batch_dts) < self._batch:
@@ -1350,16 +1409,21 @@ class Engine:
             self._batch_slot, self._batch_dts = None, []
             with self.timer.stage("batch-dispatch"):
                 cal = self._calibration()
-                if self._mesh is not None:
+                payload = self._ingest_ring.bufs[slot]
+                if self._mesh is not None and self._mesh.distributed:
+                    # (d, B, C/d, H, W/8) -> (B, C, H, W/8)
                     self._kalman_state, rows = dist_scan_frame_step(
                         self._mesh, self._kalman_state,
-                        torch.from_numpy(self._mesh_batch), dl, *cal,
-                        self.rig, self.cfg, packed=True, with_obs=True)
+                        payload.transpose(0, 1).reshape(
+                            payload.shape[1], -1, *payload.shape[3:]),
+                        dl, *cal, self.rig, self.cfg, packed=True,
+                        with_obs=True)
                 else:
                     self._kalman_state, rows = self._steps["batched"](
-                        self._kalman_state, self._ingest_ring.bufs[slot],
-                        dl, *cal)
-                    self._ingest_ring.fence(slot)
+                        self._kalman_state,
+                        tuple(payload) if self._mesh is not None
+                        else payload, dl, *cal)
+                self._ingest_ring.fence(slot)
                 # the readback carries the layout of the rows it reads,
                 # the dts go along for the trajectory ticks
                 item = (self._readback(rows), dl)
@@ -1624,9 +1688,70 @@ def _scan_rows(state, payload, dts, *cal, **kw):
                      *cal, **kw)
 
 
+def _mesh_row(state, shards, dt, *cal, mesh, cfg, **kw):
+    """The camera-sharded step on one device: each shard's (C/d, H, W/8)
+    packed frames detected, the blobs gathered, ``_tail_row``."""
+    return _tail_row(state, detect_gather(mesh, shards, cfg, packed=True),
+                     dt, *cal, **kw)
+
+
+def _mesh_scan_rows(state, shards, dts, *cal, mesh, cfg, **kw):
+    """The batched camera-sharded head on one device: (B, C/d, H, W/8) a
+    shard, detected and gathered, then ``_scan_rows``."""
+    return _scan_rows(state, detect_gather(mesh, shards, cfg, packed=True,
+                                           dim=1), dts, *cal, **kw)
+
+
+def _detect_rows(state, shards, *, cfg):
+    """One device's shards detected: ((), their (..., C/d, K, 3) blobs)."""
+    return state, tuple(detect_shard(s, cfg, True) for s in shards)
+
+
+class _ShardedStep:
+    """The camera-sharded step with its shards on several devices: a
+    compiled detection step for each shard device (its shards' packed
+    frames -> their blobs, on that device's stream), the blobs copied into
+    the tail step's payload on the engine's device (a copy between two
+    cards first waits for both cards' current streams, and the tail's
+    stream waits for it: PyTorch's rule for such copies), then the tail
+    step (the host-blob kind, per frame or batched).  Called with (state,
+    the shards' frames, dt or dts, *calibration) like the one-device
+    step."""
+
+    def __init__(self, devices, bufs, tail, cfg, dim: int):
+        groups: dict = {}
+        for k, dev in enumerate(devices):
+            groups.setdefault(dev, []).append(k)
+        self.heads = [(idx, compiled.CompiledStep(
+            functools.partial(_detect_rows, cfg=cfg), (),
+            tuple(bufs[k] for k in idx), name=f"mesh detect {dev}"))
+            for dev, idx in groups.items()]
+        self.tail = tail
+        self.payload = (tail.head if isinstance(tail, _ScanStep)
+                        else tail).args[0]
+        self.dim = dim
+        self.cams = bufs[0].shape[dim]
+
+    @property
+    def steps(self) -> tuple:
+        return tuple(h for _, h in self.heads) + getattr(
+            self.tail, "steps", (self.tail,))
+
+    def __call__(self, state, shards, dts, *cal):
+        for idx, head in self.heads:
+            _, blobs = head((), tuple(shards[k] for k in idx))
+            for k, b in zip(idx, blobs):
+                self.payload.narrow(self.dim, k * self.cams,
+                                    self.cams).copy_(b)
+        return self.tail(state, self.payload, dts, *cal)
+
+
 class _ScanStep:
     """The batched program compiled (the JAX engine's ``_step_scan``):
-    ``scan_track_from_blobs`` over B host-detected frame sets.
+    ``scan_track_from_blobs`` over B host-detected frame sets (``head``
+    ``_scan_rows``), or over the blobs of B camera-sharded frame sets
+    detected on the device (``_mesh_scan_rows``; ``payload`` then the
+    shards' buffers).
 
     The geometry and the bank over the batch are one compiled step.  With
     body templates the body stage, which runs frame by frame, is a second
@@ -1636,24 +1761,24 @@ class _ScanStep:
     fields are copied into the batch's rows after its replay.  Called with
     (state, (B, C, K, 3) payload, (B,) dts, *calibration) -> (state, (B, L)
     rows); ``state`` is donated and the rows are overwritten by the next
-    call."""
+    call.  ``points``: the world points a frame, C * K."""
 
-    def __init__(self, state, payload, dts, cal, tail_kw):
+    def __init__(self, state, payload, dts, cal, tail_kw, points: int,
+                 head=_scan_rows):
         kw = dict(tail_kw)
         sets = kw.pop("body_sets")
         self.state = state
         kstate, body_states = state if sets else (state, None)
         self.head = compiled.CompiledStep(
-            functools.partial(_scan_rows, **kw), kstate, payload, dts, *cal,
+            functools.partial(head, **kw), kstate, payload, dts, *cal,
             name="batched")
         self.body = self.rows = None
         if sets:
-            B, C, K, _ = payload.shape
-            dev = payload.device
+            dev = dts.device
             self.body = compiled.CompiledStep(
                 functools.partial(body_row, body_sets=sets), body_states,
-                _f32((C * K, 3), dev),
-                torch.zeros(C * K, dtype=torch.bool, device=dev),
+                _f32((points, 3), dev),
+                torch.zeros(points, dtype=torch.bool, device=dev),
                 _f32((), dev), name="body stage")
 
     @property

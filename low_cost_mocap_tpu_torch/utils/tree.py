@@ -35,3 +35,16 @@ def leaves(tree) -> list:
     if isinstance(tree, torch.Tensor):
         return [tree]
     return [t for sub in tree for t in leaves(sub)]
+
+
+def scan(step, carry, *xs, reverse: bool = False):
+    """``step(carry, *x_k) -> (carry, y_k)`` over the frames of ``xs``
+    ((T, ...) tensors), first to last (last to first with ``reverse``), op
+    by op: (the final carry, the ys stacked along T in frame order).  The
+    loop runner of the offline passes; ``runtime.compiled.ChunkedScan``
+    runs the same loop as a replayed graph."""
+    n = xs[0].shape[0]
+    ys = [None] * n
+    for k in (range(n - 1, -1, -1) if reverse else range(n)):
+        carry, ys[k] = step(carry, *(x[k] for x in xs))
+    return carry, stack(ys)

@@ -13,8 +13,10 @@ the step's constants are built once per device.
 
 The ``cuda``-marked cases need a card and skip here: each kind's CUDA graph
 against the step called op by op, a step that syncs refused at capture,
-and the rows read back in order at readback depth 2 and with the emit
-worker.  On a machine with a card, from the repository root:
+the rows read back in order at readback depth 2 and with the emit worker,
+the camera-sharded steps on one card and on two, and offline processing
+(``models/offline.py``'s chunk graphs) against ``compiled.disable_graphs``.
+On a machine with a card, from the repository root:
 
     python -m pytest tests/test_torch_compiled.py -q -o addopts="" \
         --noconftest
@@ -29,7 +31,8 @@ import torch
 from low_cost_mocap_tpu_torch.config import EngineConfig
 from low_cost_mocap_tpu_torch.control import bindings
 from low_cost_mocap_tpu_torch.models import pipeline
-from low_cost_mocap_tpu_torch.ops import (assignment, correspond, detect,
+from low_cost_mocap_tpu_torch.ops import (assignment, body_tracker,
+                                          correspond, detect, kalman,
                                           rigid_general)
 from low_cost_mocap_tpu_torch.runtime import compiled
 from low_cost_mocap_tpu_torch.runtime.engine import (
@@ -37,6 +40,7 @@ from low_cost_mocap_tpu_torch.runtime.engine import (
 from low_cost_mocap_tpu_torch.runtime.serial_link import CollectingLink
 from low_cost_mocap_tpu_torch.runtime.sources import SyntheticSource
 from low_cost_mocap_tpu_torch.utils import synthetic as syn
+from low_cost_mocap_tpu_torch.parallel.mesh import make_mesh
 from low_cost_mocap_tpu_torch.utils.tree import leaves
 
 torch.set_num_threads(1)
@@ -346,8 +350,10 @@ def test_a_device_dt_gives_the_bits_of_a_number():
 
 def test_the_step_constants_are_built_once_per_device():
     """The matcher's hypothesis tables, the permutation table, a body
-    template's tensors and the preprocessing weight: two calls return the
-    same tensors (an upload per frame is a copy a graph cannot hold)."""
+    template's tensors, the preprocessing weight and the filters'
+    constants: two calls return the same tensors (an upload per frame is a
+    copy a graph cannot hold), the filters' with the values a frame built
+    before."""
     dev = torch.device("cpu")
     a = correspond._hypothesis_tables_on(4, 3, dev)
     b = correspond._hypothesis_tables_on(4, 3, dev)
@@ -363,6 +369,37 @@ def test_the_step_constants_are_built_once_per_device():
                                       rigid_general._template_on(tmpl, dev)))
     assert (detect._preprocess_weight(9, 0.0, dev)
             is detect._preprocess_weight(9, 0.0, dev))
+    f32 = torch.float32
+    Q, I9 = kalman._process(dev, f32, 1e-2)
+    assert kalman._process(dev, f32, 1e-2)[0] is Q
+    assert torch.equal(Q, torch.eye(9) * 1e-2) and torch.equal(I9,
+                                                               torch.eye(9))
+    I6, H, R = body_tracker._cv_constants(dev, f32, 1e-4)
+    assert body_tracker._cv_constants(dev, f32, 1e-4)[1] is H
+    assert torch.equal(I6, torch.eye(6))
+    assert torch.equal(H, torch.cat([torch.eye(3), torch.zeros(3, 3)], 1))
+    assert torch.equal(R, torch.eye(3) * 1e-4)
+    assert torch.equal(body_tracker._cv_process(dev, f32, 2.0),
+                       torch.eye(6) * 2.0)
+
+
+# every cache of device tensors that a captured step reads
+_KEPT = {"kalman._constants": kalman._constants,
+         "kalman._process": kalman._process,
+         "body_tracker._cv_constants": body_tracker._cv_constants,
+         "body_tracker._cv_process": body_tracker._cv_process,
+         "correspond._hypothesis_tables_on":
+             correspond._hypothesis_tables_on,
+         "assignment._perm_table_on": assignment._perm_table_on,
+         "rigid_general._template_on": rigid_general._template_on,
+         "detect._preprocess_weight": detect._preprocess_weight}
+
+
+@pytest.mark.parametrize("name", sorted(_KEPT))
+def test_device_constants_are_kept_for_the_life_of_the_process(name):
+    """A graph reads a cached constant by address, so no such cache
+    evicts an entry (an evicted tensor's memory would be reused)."""
+    assert _KEPT[name].cache_info().maxsize is None
 
 
 def test_compiled_step_donates_its_state_and_refuses_other_buffers():
@@ -497,3 +534,109 @@ def test_graph_rows_are_read_back_before_the_next_replay(card, extra):
         eng.stop()
         events.append(got)
     assert len(events[0]) == N_FRAMES and events[0] == events[1]
+
+
+def _rows(eng, frames):
+    """Every packed row ``eng`` decodes serving ``frames``, as (n, L)."""
+    rows, decode = [], eng._decode
+
+    def capture(rb):
+        outs = decode(rb)               # waits for the row's copy
+        buf = rb.ring.bufs[rb.slot]
+        rows.append(buf.numpy().reshape(-1, buf.shape[-1]).copy())
+        return outs
+
+    eng._decode = capture
+    for f in frames:
+        eng.process_frame(f, 1 / 60)
+    eng.flush_batches()
+    return torch.from_numpy(np.concatenate(rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("cards", [1, 2])
+def test_mesh_graphs_equal_the_steps_op_by_op_on_the_card(card, batch,
+                                                          cards):
+    """Camera-sharded serving at cam = 4 on one card (one graph) and on
+    two (a graph a card and the tail's): rows bitwise equal to the same
+    engine's steps op by op (``compiled.disable_graphs``) and to the
+    single-device device-detect engine's."""
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} cards")
+    Rs, ts, rig, src = _scene()
+    frames = [src.read_at(i / 60) for i in range(2 * N_FRAMES)]
+    cfg = EngineConfig(dispatch_batch=batch)
+    devs = [torch.device("cuda", k % cards) for k in range(4)]
+    rows = []
+    for eager in (False, True):
+        eng = _engine(rig, cfg, Rs, ts, device=devs[0], fast_path=True,
+                      mesh=make_mesh({"cam": 4}, devices=devs))
+        _track(eng, Rs, ts)
+        if eager:
+            with compiled.disable_graphs():
+                rows.append(_rows(eng, frames))
+            continue
+        rows.append(_rows(eng, frames))
+        step = eng._steps["batched" if batch > 1 else "mesh"]
+        assert all(s.graph is not None
+                   for s in getattr(step, "steps", (step,)))
+    ref = _engine(rig, EngineConfig(), Rs, ts, device=devs[0],
+                  fast_path=True, host_detect=False)
+    _track(ref, Rs, ts)
+    assert _same_bits(rows[0], rows[1])
+    assert _same_bits(rows[0], _rows(ref, frames))
+
+
+@pytest.mark.cuda
+def test_offline_graphs_equal_the_steps_op_by_op_on_the_card(card):
+    """``process_recording`` from host blobs with ``smooth`` and from
+    packed and sparse frames (chunks of 6 over 2 * N_FRAMES + 3 frame sets,
+    the last chunk padded) and ``stream_recording`` (blocks of 8, the last
+    partial) against the same calls under ``compiled.disable_graphs``:
+    every output bitwise equal; a second call at another length captures
+    nothing."""
+    from low_cost_mocap_tpu_torch.models import offline
+    from low_cost_mocap_tpu_torch.ops import camera
+
+    Rs, ts, rig, src = _scene()
+    cfg = EngineConfig()
+    T = 2 * N_FRAMES + 3
+    frames = np.stack([src.read_at(i / 60) for i in range(T)])
+    blobs = offline.detect_recording_host(frames, cfg.detect_threshold,
+                                          cfg.max_blobs)
+    K = torch.tensor(rig.K_stack(), device=card)
+    cal = (camera.projection_matrix(K, torch.tensor(Rs, device=card),
+                                    torch.tensor(ts, device=card)),
+           K, torch.tensor(rig.dist_stack(), device=card),
+           torch.eye(4, device=card))
+    dts = np.full((T,), 1 / 60, np.float32)
+
+    packed = np.stack([detect.pack_frames(f, cfg.detect_threshold)
+                       for f in frames])
+    sparse = np.stack([detect.sparse_ingest(f, cfg.detect_threshold,
+                                            cfg.sparse_budget)[0]
+                       for f in frames])
+
+    def calls():
+        kw = dict(dts=dts, chunk=6)
+        return (offline.process_recording(blobs, *cal, rig, cfg,
+                                          smooth=True, **kw),
+                offline.process_recording(packed, *cal, rig, cfg,
+                                          packed=True, **kw),
+                offline.process_recording(sparse, *cal, rig, cfg,
+                                          sparse=True, **kw),
+                offline.stream_recording(frames, *cal, rig, cfg, dts=dts,
+                                         block=8)[0])
+
+    got = calls()
+    with compiled.disable_graphs():
+        want = calls()
+    for a, b in zip(leaves(got), leaves(want)):
+        assert (_same_bits(a, b) if a.dtype == torch.float32
+                else torch.equal(a, b))
+    steps = offline.cached_steps()
+    assert steps and all(s.graph is not None for s in steps)
+    offline.process_recording(tuple(a[:T - 7] for a in blobs), *cal, rig,
+                              cfg, dts=dts[:T - 7], chunk=6, smooth=True)
+    assert len(offline.cached_steps()) == len(steps)

@@ -7,7 +7,13 @@ equal, floats within atol 1e-5), and bitwise against the port's own
 single-device step; the mesh engine per frame and batched against JAX's
 mesh engine on the scenes of ``tests/test_engine_mesh.py``, and bitwise
 against the port's single-device engine; the engine's and the launcher's
-refusals.
+refusals.  The mesh engine's compiled steps (``runtime/engine.py``: one step
+over every shard on one device, ``_ShardedStep`` over several) run op by
+op over their buffers on the CPU, bitwise equal to ``dist_frame_step`` and
+``dist_scan_frame_step``; a mesh across processes has no compiled step.
+The graphs are held to the same steps op by op on the card by
+``tests/test_torch_compiled.py``'s ``cuda`` cases and ``chip_smoke.py``
+[16a]/[16b].
 """
 
 import numpy as np
@@ -24,7 +30,7 @@ from low_cost_mocap_tpu_torch.ops.correspond import _pairwise_fundamentals
 from low_cost_mocap_tpu_torch.parallel import mesh as mesh_lib
 from low_cost_mocap_tpu_torch.parallel.dist_pipeline import (
     dist_frame_step, dist_scan_frame_step)
-from low_cost_mocap_tpu_torch.runtime.engine import Engine
+from low_cost_mocap_tpu_torch.runtime.engine import Engine, _ShardedStep
 from low_cost_mocap_tpu_torch.runtime.serial_link import CollectingLink
 from low_cost_mocap_tpu_torch.runtime.sources import SyntheticSource
 from low_cost_mocap_tpu_torch.utils import synthetic as syn
@@ -354,3 +360,81 @@ def test_serve_cam_shards_needs_the_cards(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError, match="needs as many CUDA devices"):
         serve.build(args)
+
+
+def _rows(eng, frames):
+    """Every packed row ``eng`` decodes serving ``frames``, as (n, L)."""
+    rows, decode = [], eng._decode
+
+    def capture(rb):
+        outs = decode(rb)               # waits for the row's copy
+        buf = rb.ring.bufs[rb.slot]
+        rows.append(buf.numpy().reshape(-1, buf.shape[-1]).copy())
+        return outs
+
+    eng._decode = capture
+    for f in frames:
+        eng.process_frame(f, 1 / 60)
+    eng.flush_batches()
+    return np.concatenate(rows)
+
+
+def _same_bits(a, b):
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.shape == b.shape and np.array_equal(a.view(np.uint32),
+                                                 b.view(np.uint32))
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_compiled_mesh_steps_equal_the_eager_functions(batch):
+    """The mesh engine's compiled step (CPU mode: op by op over its
+    buffers) gives ``dist_frame_step``'s / ``dist_scan_frame_step``'s rows
+    bit for bit at cam = 2 and 4; so does the several-device step, on a
+    mesh whose shards alternate between "cpu" and "cpu:0" (two devices to
+    the mesh, one to the tensors)."""
+    B = 8
+    Rs, ts, rig, frames = _frames(B)
+    cfg = EngineConfig(dispatch_batch=batch)
+    dts = np.full((batch,), 1 / 60, np.float32)
+    meshes = {d: _cam_mesh(d) for d in (2, 4)}
+    meshes["cpu, cpu:0"] = mesh_lib.make_mesh(
+        {"cam": 4}, devices=[CPU, torch.device("cpu", 0)] * 2)
+    for name, mesh in meshes.items():
+        eng, _ = _engine(rig, Rs, ts, cfg, mesh=mesh)
+        step = eng._steps["batched" if batch > 1 else "mesh"]
+        assert isinstance(step, _ShardedStep) == (name == "cpu, cpu:0")
+        got = _rows(eng, frames)
+        state = pipeline.make_init_state(rig, device="cpu")
+        cal = eng._calibration()
+        want = []
+        for i in range(0, B, batch):
+            if batch > 1:
+                state, rows = dist_scan_frame_step(
+                    mesh, state, torch.as_tensor(np.stack([
+                        detect.pack_frames(f, cfg.detect_threshold)
+                        for f in frames[i:i + batch]])), dts, *cal, rig,
+                    cfg, packed=True, with_obs=True)
+            else:
+                state, rows = dist_frame_step(
+                    mesh, state, detect.pack_frames(
+                        frames[i], cfg.detect_threshold), dts[0], *cal, rig,
+                    cfg, packed=True, with_obs=True, pack=True)
+            want.append(rows.reshape(-1, rows.shape[-1]).numpy())
+        assert _same_bits(got, np.concatenate(want)), name
+
+
+def test_a_mesh_across_processes_has_no_compiled_step():
+    """A mesh with a ``torch.distributed`` group runs its step op by op by
+    construction (its gather is a collective); one process's mesh has a
+    compiled step per kind."""
+    Rs, ts, rig = syn.ring_rig(num_cameras=4)
+    devices = np.empty(2, dtype=object)
+    devices[:] = [CPU, CPU]
+    across = mesh_lib.Mesh(devices, ("cam",), group="a process group",
+                           local=(0,))
+    for batch in (1, 4):
+        cfg = EngineConfig(dispatch_batch=batch)
+        eng, _ = _engine(rig, Rs, ts, cfg, mesh=across)
+        assert eng._steps == {}
+        one, _ = _engine(rig, Rs, ts, cfg, mesh=_cam_mesh(2))
+        assert list(one._steps) == ["batched" if batch > 1 else "mesh"]
