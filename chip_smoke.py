@@ -103,15 +103,29 @@ cc_iters 24, 2 candidates per camera, 2 drones, batches of 128:
    a graph); [16c] ``process_recording`` (frames; host blobs with
    ``smooth``; body sets with ``smooth``) and ``stream_recording`` on
    [12]'s recordings against ``compiled.disable_graphs()``, then cold
-   calls at a fresh length, captures included, not slower than eager.
+   calls at a fresh length, captures included, not slower than eager
+   (each timed call after a full collection, as ``GcPauses`` times).
+17. the solvers' compiled programs as graphs, each against the same call
+   under ``compiled.disable_graphs()``, outputs bitwise equal: [17a]
+   [9a]'s event at a fresh point bucket, cold (no slower than eager,
+   each event after a full collection) and warm, and a capture of another size in the bucket, which captures
+   nothing; [17b] ``bundle_adjust`` (free and focals frozen),
+   ``dist_bundle_adjust`` and ``schur_bundle_adjust`` on 1 shard and on
+   4 shards of a mesh of "cuda" and "cuda:0" (the several-card layout),
+   ``calibrate_intrinsics``; [17c] ``process_sequence`` and
+   ``smooth_sharded`` on [14d]'s recording; [17d] the rts-assoc worker and
+   the differential harness's tracking step; ms a call (first, second,
+   warm, eager), captures, LM chunks and reads of done; [17e] the first
+   and second ``calculate-camera-pose`` of a fresh process broken down
+   by stage.
 
 [9b] also sends ``acquire-floor`` with two points and with collinear
 points: the installed matrix is finite and the CPU port's.
 
 Every serving path serves with the matcher's observations (``with_obs``).
-Before each serving path ([4]-[5], [9c], [9e], [10]-[14d]) the kernels'
-launch counts are set to 0, and after it they are held to what the path
-must launch; [14e]'s ranks count their own.
+Before each serving path ([4]-[5], [9c], [9e], [10]-[14d], [17c]) the
+kernels' launch counts are set to 0, and after it they are held to what
+the path must launch; [14e]'s ranks count their own.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -240,6 +254,8 @@ CLUSTER_TIMEOUT_S = 300    # [14e] each run_cluster call
 COMPILED_FRAMES = 200      # [15] frames of each per-frame kind, every rig
 MESH_GRAPH_FRAMES = 100    # [16a] per-frame frames after the first 20
 OFFLINE_COLD = 1487        # [16c] a recording length no call has had
+SOLVER_FRESH_N = 1487      # [17a] a second wand capture, [9a]'s bucket
+DIFF_FRAMES = 120          # [17d] frame sets through the tracking step
 COMPILED_BATCHES = 2       # [15] batches of BATCH, the first one a warm-up
 OVERFLOW_EVERY = 10        # [15] every 10th device-detect frame is lit past
 #                            the sparse budget: the packed step serves it
@@ -1563,6 +1579,7 @@ def phase_calibration(rig, cfg, Rs, ts):
 
     from low_cost_mocap_tpu_torch.models import calibrator
     from low_cost_mocap_tpu_torch.ops import ba, ransac, triangulate
+    from low_cost_mocap_tpu_torch.runtime import compiled
     from low_cost_mocap_tpu_torch.runtime.engine import (
         Engine, camera_poses_to_serializable)
     from low_cost_mocap_tpu_torch.runtime.serial_link import (CollectingLink,
@@ -1669,8 +1686,9 @@ def phase_calibration(rig, cfg, Rs, ts):
           f"in the process), RANSAC (3 pairs x "
           f"{cfg.ransac_iters} trials) {timings['ransac_ms']:.1f} ms, one "
           f"BA solve {ba_ms:.1f} ms over {stats['iterations']} iterations "
-          f"({ba_ms / max(stats['iterations'], 1):.2f} ms and one device "
-          "read each)")
+          f"({ba_ms / max(stats['iterations'], 1):.2f} ms each; "
+          f"{stats['chunks']} chunks of {ba.CHUNK} replayed, "
+          f"{stats['reads']} reads of done)")
 
     # [9b] determine-scale, acquire-floor, set-origin on the result
     rng = np.random.default_rng(1)
@@ -1760,10 +1778,34 @@ def phase_calibration(rig, cfg, Rs, ts):
     for i in range(REFINE_FRAMES):
         ref.process_frame(sweep_frame(i, rig, Rs, ts), 1 / 60)
     before = float(np.median([e for p in pl for e in p["errors"]]))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ref.handle("refine-camera-pose", {"startOrStop": "stop"})
-    refine_ms = (time.perf_counter() - t0) * 1e3
+    # the stop's BA, its arguments and stats kept (the Engine calls
+    # ops.ba.bundle_adjust through the module)
+    seen = {}
+    real_ba = ba.bundle_adjust
+
+    def keep_ba(*a, **kw):
+        seen.update(args=a, kw=kw)
+        return real_ba(*a, stats=seen.setdefault("stats", {}), **kw)
+
+    ba.bundle_adjust = keep_ba
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref.handle("refine-camera-pose", {"startOrStop": "stop"})
+        refine_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ba.bundle_adjust = real_ba
+    # the same solve with the points padded by hand to other lengths, op
+    # by op: the iteration at which its convergence test fires
+    pad_iters = []
+    p0, m0 = seen["args"][0], seen["args"][1]
+    for extra in (0, 100, 400):
+        pts_x, mask_x = ba.pad_points(p0, m0, p0.shape[0] + extra)
+        st = {}
+        with compiled.disable_graphs():
+            real_ba(pts_x, mask_x, *seen["args"][2:], stats=st,
+                    **seen["kw"])
+        pad_iters.append((ba.bucket(p0.shape[0] + extra), st["iterations"]))
     pl.clear()
     for i in range(REFINE_FRAMES, REFINE_FRAMES + 20):
         ref.process_frame(sweep_frame(i, rig, Rs, ts), 1 / 60)
@@ -1776,8 +1818,11 @@ def phase_calibration(rig, cfg, Rs, ts):
     print(f"[9c] refine-camera-pose over {REFINE_FRAMES} served frames "
           f"({poses[0]['refined_from_points']} points): median error "
           f"{before:.4f} -> {after:.4f} px^2 on the next 20 frames; the "
-          f"stop (BA with focals pinned) took {refine_ms:.1f} ms; "
-          f"kalman_bank {launches[1]} launches")
+          f"stop (BA with focals pinned) took {refine_ms:.1f} ms, its BA "
+          f"{seen['stats']['iterations']} LM iterations in "
+          f"{seen['stats']['chunks']} chunk(s), the first call at its "
+          f"bucket op by op; the same solve at buckets (bucket, "
+          f"iterations) {pad_iters}; kalman_bank {launches[1]} launches")
 
     # [9d] calibrate-intrinsics on camera 0 from rendered dot grids
     K_t, views = intrinsics_views(rig)
@@ -3177,7 +3222,8 @@ def phase_dist_ba(rig, Rs, ts):
     CPU, each BA_ITERS steps (no early stop, so every run's cost is taken
     at the same step): the card's 4-shard cost within BA_RTOL of its
     one-shard cost, the CPU's 4-shard cost within BA_CPU_RTOL of the
-    card's, ms per LM iteration (one device read each)."""
+    card's, ms per LM iteration (the LM chunks' graphs on the card since
+    [17]'s slice; two chunks of ``ba.CHUNK``, one read of done between)."""
     import torch
 
     from low_cost_mocap_tpu_torch.ops import rotations as rot
@@ -3316,7 +3362,7 @@ def phase_temporal(rig, cfg, Rs, ts):
           f"smooth_reference {ms_ref:.1f} ms, max_abs_err {err:.2e} away "
           f"from the first and last {SMOOTH_EDGE} frames")
     print(f"[14d] took {time.perf_counter() - t_all:.1f} s")
-    return launches, (ms_seq, ms_sharded, ms_ref)
+    return launches, (mesh, seq, per_frame, x)
 
 
 def phase_cluster():
@@ -3732,6 +3778,10 @@ def phase_compiled(rig, cfg, Rs, ts):
 
 def print_captures(tag, steps):
     for s in steps:
+        if s.graph is None:
+            print(f"    capture {tag} / {s.name}: none (a lazy step called "
+                  "once, op by op)")
+            continue
         print(f"    capture {tag} / {s.name}: {s.capture_ms:.1f} ms, pool "
               f"{s.pool_bytes / 2**20:.1f} MiB, launches a replay "
               f"(detect_blobs, kalman_bank) {tuple(s.launches_per_replay)}")
@@ -3842,8 +3892,13 @@ def phase_offline_graphs(data):
     they use, each against its eager call (not slower, bitwise equal):
     ``process_recording`` from frames and from host blobs with ``smooth``
     (each then at a third length that captures nothing), and
-    ``stream_recording`` (its partial last block of a new length).  Each graph's
-    capture ms and pool MiB.  Returns {path: launches}."""
+    ``stream_recording`` (its partial last block of a new length, which a
+    lazy step runs op by op at its first call).  Each timed call starts
+    after a full collection (``GcPauses``: the script keeps every run's
+    results, and a full pause over them would land in whichever call
+    crosses the collector's threshold) and prints the collector's pauses
+    inside it.  Each graph's capture ms and pool MiB.  Returns {path:
+    launches}."""
     import torch
 
     from low_cost_mocap_tpu_torch.models import offline
@@ -3873,17 +3928,25 @@ def phase_offline_graphs(data):
          -(-T // OFFLINE_BLOCK)),
     ]
 
+    gc_ms = []
+
     def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
+        with GcPauses() as gcp:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t0
+        gc_ms.append(gcp.ms)
+        return out, t
 
     launches = {}
     for name, fn, n, want_d, want_k in cases:
         tag = f"[16c] {name}"
-        fn()                                  # captures, if any are new
+        # captures any new graph (a lazy step, a streamed block, at its
+        # second call)
+        fn()
+        fn()
         reset_launches()
         got, t_graph = timed(fn)
         launches[tag] = read_launches(tag, want_d, want_k)
@@ -3911,9 +3974,10 @@ def phase_offline_graphs(data):
         f = frames[:n] if name == "frames" else (blobs[:n], valid[:n])
         offline.clear_cache()
         got, t_cold = timed(one_shot(f, n, **kw))
-        new = offline.cached_steps()
+        new = [s for s in offline.cached_steps() if s.graph is not None]
         with compiled.disable_graphs():
             want, t_eager = timed(one_shot(f, n, **kw))
+        gc_pair = gc_ms[-2:]
         check(same_results(got, want), f"[16c] cold {name}: outputs differ "
               "from the eager call's")
         check(t_cold <= t_eager, f"[16c] cold {name} at {n} frame sets: "
@@ -3923,7 +3987,9 @@ def phase_offline_graphs(data):
               f"cache emptied; {len(new)} graphs captured in the call, "
               f"{sum(s.capture_ms for s in new):.1f} ms of captures): "
               f"{t_cold * 1e3:.1f} ms against {t_eager * 1e3:.1f} ms eager "
-              f"({t_eager / t_cold:.2f}x), outputs bitwise equal")
+              f"({t_eager / t_cold:.2f}x; collector pauses inside "
+              f"{gc_pair[0]:.1f} and {gc_pair[1]:.1f} ms), outputs bitwise "
+              "equal")
         print_captures(f"[16c] cold {name}", new)
         k = len(offline.cached_steps())
         m = OFFLINE_COLD - 2 * OFFLINE_CHUNK - 1
@@ -3933,8 +3999,8 @@ def phase_offline_graphs(data):
               "frame sets captured a graph")
         print(f"[16c] process_recording, {name}, {m} frame sets: no new "
               f"graph, {t_warm * 1e3:.1f} ms")
-    # stream_recording at the fresh length: a partial last block of a new
-    # length, its graph captured in the call
+    # stream_recording at the fresh length: the full block captured at its
+    # second call, the partial last block of a new length op by op (lazy)
     offline.clear_cache()
 
     def stream():
@@ -3942,7 +4008,8 @@ def phase_offline_graphs(data):
                                         dts=dts[:n], block=OFFLINE_BLOCK)[0]
 
     got, t_cold = timed(stream)
-    new = offline.cached_steps()
+    new = [s for s in offline.cached_steps() if s.graph is not None]
+    lazy = len(offline.cached_steps()) - len(new)
     with compiled.disable_graphs():
         want, t_eager = timed(stream)
     check(same_results(got, want), "[16c] cold stream_recording: outputs "
@@ -3952,11 +4019,490 @@ def phase_offline_graphs(data):
           f"{t_eager * 1e3:.1f} ms")
     print(f"[16c] stream_recording, {n} frame sets, cold ({len(new)} graphs "
           f"captured in the call, {sum(s.capture_ms for s in new):.1f} ms "
-          f"of captures): {t_cold * 1e3:.1f} ms against "
-          f"{t_eager * 1e3:.1f} ms eager ({t_eager / t_cold:.2f}x), outputs "
-          "bitwise equal")
+          f"of captures; {lazy} lazy step(s) run once, op by op): "
+          f"{t_cold * 1e3:.1f} ms against {t_eager * 1e3:.1f} ms eager "
+          f"({t_eager / t_cold:.2f}x; collector pauses inside "
+          f"{gc_ms[-2]:.1f} and {gc_ms[-1]:.1f} ms), outputs bitwise equal")
     print_captures("[16c] cold stream", new)
     return launches
+
+
+def timed_call(call, runs=1):
+    """(the result of the first of ``runs`` calls, the median wall ms of
+    each, the card synchronised around it)."""
+    import torch
+
+    out, ms = None, []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out = res if out is None else out
+    return out, float(np.median(ms))
+
+
+def solver_vs_eager(tag, call, steps_of, runs=2):
+    """[17] A solver's graphs against the same call under
+    ``compiled.disable_graphs()`` on the same inputs, its steps' caches
+    emptied first: the first call (a lazy loop's first run goes op by op;
+    a lazy step's first call too), the second (which captures what the
+    first did not), the warm calls (median of ``runs``) and the eager
+    call; every output bitwise equal, the same stats.  ``call(stats)``
+    runs the solver; ``steps_of()`` lists the cached steps.  Returns a
+    dict of the numbers."""
+    from low_cost_mocap_tpu_torch.runtime import compiled
+
+    before = compiled.captures
+    st = [{}, {}, {}, {}]
+    first, first_ms = timed_call(lambda: call(st[0]))
+    second, second_ms = timed_call(lambda: call(st[1]))
+    captures = compiled.captures - before
+    warm, warm_ms = timed_call(lambda: call(st[2]), runs)
+    with compiled.disable_graphs():
+        eager, eager_ms = timed_call(lambda: call(st[3]))
+    check(all(same_results(r, eager) for r in (first, second, warm)),
+          f"{tag}: the graphs' outputs differ from the eager call's")
+    check(all(x == st[3] for x in st[:3]),
+          f"{tag}: stats {st[:3]} against eager {st[3]}")
+    steps = [s for s in steps_of() if s.graph is not None]
+    check(bool(steps), f"{tag}: no graph was captured")
+    res = {"first_ms": first_ms, "second_ms": second_ms, "warm_ms": warm_ms,
+           "eager_ms": eager_ms, "captures": captures,
+           "capture_ms": sum(s.capture_ms for s in steps),
+           "pool_mib": sum(s.pool_bytes for s in steps) / 2**20,
+           "stats": st[2]}
+    extra = (f"; {st[2]['iterations']} LM iterations, {st[2]['chunks']} "
+             f"chunks replayed and {st[2]['reads']} reads of done a call"
+             if st[2] else "")
+    print(f"{tag}: warm {warm_ms:.1f} ms a call against {eager_ms:.1f} ms "
+          f"eager ({eager_ms / warm_ms:.2f}x); at fresh shapes the first "
+          f"call {first_ms:.1f} ms, the second {second_ms:.1f} ms "
+          f"({captures} capture(s) in the two, {res['capture_ms']:.1f} ms, "
+          f"pool {res['pool_mib']:.1f} MiB); outputs bitwise equal{extra}")
+    return res
+
+
+def board_points(n=INTRINSICS_VIEWS, seed=9):
+    """[9d]'s board poses, projected: (board (N, 2), (n, N, 2) points)."""
+    import torch
+
+    from low_cost_mocap_tpu_torch.ops import rotations
+    from low_cost_mocap_tpu_torch.ops.intrinsics import make_grid
+
+    S = 320
+    K_t = np.array([[0.8 * S, 0.0, S / 2 + 3.0], [0.0, 0.79 * S, S / 2 - 4.0],
+                    [0.0, 0.0, 1.0]])
+    board = make_grid(4, 5, 0.05)
+    obj3 = np.concatenate([board, np.zeros((len(board), 1))], axis=-1)
+    rng = np.random.default_rng(seed)
+    views = []
+    while len(views) < n:
+        rvec = np.deg2rad(rng.uniform(-25, 25, size=3) * [1, 1, 0.7])
+        R = rotations.rotvec_to_matrix(torch.as_tensor(rvec)).numpy()
+        t = np.array([-0.10 + rng.uniform(-0.02, 0.02),
+                      -0.08 + rng.uniform(-0.02, 0.02),
+                      rng.uniform(0.5, 0.7)])
+        Xc = obj3 @ R.T + t
+        uv = Xc[:, :2] / Xc[:, 2:3] * [K_t[0, 0], K_t[1, 1]] + K_t[:2, 2]
+        views.append(uv + rng.normal(scale=0.1, size=uv.shape))
+    return board, np.asarray(views, np.float32)
+
+
+def differential_blobs(n, max_blobs, seed=0):
+    """``utils.differential``'s clean scene (two drones on the reference
+    rig, 0.3 px noise) as ``n`` frame sets of (4, max_blobs, 2) blobs and
+    (4, max_blobs) validity."""
+    from low_cost_mocap_tpu_torch.utils import differential as dif
+    from low_cost_mocap_tpu_torch.utils import synthetic as syn
+
+    Rs, ts, rig = dif.reference_rig()
+    rng = np.random.default_rng(seed)
+    out = []
+    for f in range(n):
+        t = f / 60.0
+        X = np.concatenate([
+            dif.drone_markers_display(dif._pos_a(t), 0.6 * np.sin(0.4 * t),
+                                      +1, +0.01, rig),
+            dif.drone_markers_display(dif._pos_b(t), -0.5 * np.cos(0.3 * t),
+                                      -1, -0.01, rig)])
+        pts, mask = syn.observe(dif.display_to_cam(X).astype(np.float32),
+                                Rs, ts, rig, noise_px=0.3, rng=rng)
+        blobs = np.zeros((4, max_blobs, 2), np.float32)
+        valid = np.zeros((4, max_blobs), bool)
+        for c in range(4):
+            idx = np.flatnonzero(mask[:, c])
+            blobs[c, :len(idx)] = pts[idx, c]
+            valid[c, :len(idx)] = True
+        out.append((blobs, valid))
+    return out
+
+
+def calibration_event_graphs(rig, cfg, Rs, ts):
+    """[17a] [9a]'s ``calculate-camera-pose`` through ``Engine.handle`` at
+    a fresh bucket, op by op (``compiled.disable_graphs()``) and cold (the
+    first of its 8 BA calls op by op, the capture at the second), in turns
+    (eager, cold, eager, cold; the LM chunks' cache emptied before each),
+    then warm, each event after a full collection (``GcPauses``); the
+    poses bitwise equal; the cold events no slower than the eager ones on
+    the mean; then a wand capture of SOLVER_FRESH_N frames, in the same
+    bucket, captures nothing."""
+    import torch
+
+    from low_cost_mocap_tpu_torch.ops import ba
+    from low_cost_mocap_tpu_torch.runtime import compiled
+    from low_cost_mocap_tpu_torch.runtime.engine import Engine
+    from low_cost_mocap_tpu_torch.runtime.serial_link import CollectingLink
+
+    eng = Engine(rig, cfg, None, CollectingLink(), device=DEVICE)
+    events = []
+    eng.on("camera-pose", events.append)
+
+    def event(n, seed=0):
+        pts, mask, _ = wand_capture(rig, Rs, ts, n, seed=seed)
+        wire = {"cameraPoints": wire_points(pts, mask)}
+        events.clear()
+        with GcPauses():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.handle("calculate-camera-pose", wire)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        return [np.asarray([p["R"] for p in e["camera_poses"]])
+                for e in events] + [events[-1]["error"]], ms
+
+    # eager, cold, eager, cold: the two sides' means, in turns (the last
+    # cold event leaves the graph the warm one replays)
+    runs = {"eager": [], "cold": []}
+    for side in ("eager", "cold", "eager", "cold"):
+        ba.clear_cache()
+        before = compiled.captures
+        with op_by_op("eager" if side == "eager" else "graph"):
+            runs[side].append(event(WAND_FRAMES))
+        captured = compiled.captures - before
+    want = runs["eager"][0][0]
+    warm, warm_ms = event(WAND_FRAMES)
+    for got, what in ((r[0], side) for side in runs for r in runs[side]):
+        check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+              f"[17a] the {what} event's poses differ from the eager one's")
+    check(all(np.array_equal(a, b) for a, b in zip(warm, want)),
+          "[17a] the warm event's poses differ from the eager one's")
+    eager_ms = float(np.mean([ms for _, ms in runs["eager"]]))
+    cold_ms = float(np.mean([ms for _, ms in runs["cold"]]))
+    check(cold_ms <= eager_ms, f"[17a] the cold event at a fresh bucket "
+          f"took {cold_ms:.1f} ms, slower than eager {eager_ms:.1f} ms")
+    before = compiled.captures
+    _, fresh_ms = event(SOLVER_FRESH_N, seed=1)
+    check(compiled.captures == before, f"[17a] a {SOLVER_FRESH_N}-frame "
+          f"capture (bucket {ba.bucket(SOLVER_FRESH_N)}) captured "
+          f"{compiled.captures - before} graphs")
+    step = ba.cached_steps()[0]
+    print(f"[17a] calculate-camera-pose on {WAND_FRAMES} wand frames "
+          f"(bucket {ba.bucket(WAND_FRAMES)}) at a fresh bucket, each side "
+          f"twice in turns: cold {cold_ms:.1f} ms ("
+          + ", ".join(f"{ms:.1f}" for _, ms in runs["cold"])
+          + f"; {captured} capture, {step.capture_ms:.1f} ms, "
+          f"pool {step.pool_bytes / 2**20:.1f} MiB) against {eager_ms:.1f} "
+          f"ms op by op (" + ", ".join(f"{ms:.1f}" for _, ms in runs["eager"])
+          + f"; {eager_ms / cold_ms:.2f}x); warm {warm_ms:.1f} ms "
+          f"({eager_ms / warm_ms:.2f}x); poses bitwise equal; "
+          f"{SOLVER_FRESH_N} frames in the same bucket {fresh_ms:.1f} ms, "
+          "no capture")
+    return {"eager_ms": eager_ms, "cold_ms": cold_ms, "warm_ms": warm_ms}
+
+
+def phase_solver_graphs(rig, cfg, Rs, ts, temporal_data):
+    """[17] The solvers' compiled programs as CUDA graphs against the same
+    calls under ``compiled.disable_graphs()``: [17a] [9a]'s event cold at a
+    fresh bucket, warm, and at another size in the bucket; [17b]
+    ``bundle_adjust`` (free and focals frozen), ``dist_bundle_adjust`` and
+    ``schur_bundle_adjust`` (1 shard; BA_SHARDS shards on "cuda" and
+    "cuda:0") on [9a]'s wand observations from [14c]'s poses,
+    ``calibrate_intrinsics`` on [9d]'s board poses; [17c]
+    ``process_sequence`` and ``smooth_sharded`` on [14d]'s recording and
+    tracks; [17d] the rts-assoc worker on a one-card time mesh and the
+    differential harness's tracking step.  Every output bitwise equal; ms
+    a call (first, second, warm, eager), captures, LM chunks and reads.
+    Returns {path: launches}."""
+    import torch
+
+    from low_cost_mocap_tpu_torch.config import EngineConfig
+    from low_cost_mocap_tpu_torch.ops import ba, intrinsics, kalman
+    from low_cost_mocap_tpu_torch.ops import rotations as rot
+    from low_cost_mocap_tpu_torch.parallel import (dist_ba, multiprocess,
+                                                   schur_ba, temporal)
+    from low_cost_mocap_tpu_torch.parallel import mesh as mesh_lib
+    from low_cost_mocap_tpu_torch.runtime import compiled
+    from low_cost_mocap_tpu_torch.utils import differential as dif
+
+    t_all = time.perf_counter()
+    card = torch.device(DEVICE)
+    calibration_event_graphs(rig, cfg, Rs, ts)
+
+    # [17b] the LM solvers, each from an empty cache
+    pts, mask, _ = wand_capture(rig, Rs, ts, WAND_FRAMES)
+    rng = np.random.default_rng(4)
+    Rs_g = np.einsum("cij,jk->cik", Rs, Rs[0].T).astype(np.float32)
+    ts_g = (ts - np.einsum("cij,j->ci", Rs_g, ts[0])).astype(np.float32)
+    dR = rot.rotvec_to_matrix(torch.as_tensor(rng.normal(
+        scale=0.02, size=(rig.num_cameras, 3)).astype(np.float32))).numpy()
+    Rs_p = np.einsum("cij,cjk->cik", dR, Rs_g).astype(np.float32)
+    ts_p = (ts_g + rng.normal(scale=0.03, size=ts_g.shape)).astype(
+        np.float32)
+    Rs_p[0], ts_p[0] = np.eye(3, dtype=np.float32), 0
+    A = [torch.as_tensor(a, device=card) for a in (pts, mask, rig.K_stack(),
+                                                    Rs_p, ts_p)]
+    C = rig.num_cameras
+    for freeze in (False, True):
+        ba.clear_cache()
+        solver_vs_eager(
+            f"[17b] bundle_adjust, {WAND_FRAMES} points (bucket "
+            f"{ba.bucket(WAND_FRAMES)}), max_iters {cfg.ba_max_iters}"
+            + (", focals frozen" if freeze else ""),
+            lambda st, f=freeze: ba.bundle_adjust(
+                *A, num_cameras=C, max_iters=cfg.ba_max_iters,
+                freeze_focals=f, stats=st), ba.cached_steps)
+    # the sharded solvers on one shard (one graph a chunk), and on
+    # BA_SHARDS shards of a mesh of "cuda" and "cuda:0", two devices that
+    # are the one card, laid out as on several cards (a graph per device
+    # and phase); BA_SHARDS shards on the repeated card run in [14c]
+    for name, mod, solve in (
+            ("dist", dist_ba, dist_ba.dist_bundle_adjust),
+            ("schur", schur_ba, schur_ba.schur_bundle_adjust)):
+        for devs in ([card], [DEVICE, f"{DEVICE}:0"] * (BA_SHARDS // 2)):
+            mod._STEPS.clear()
+            mesh = mesh_lib.make_mesh({"point": len(devs)}, devices=devs)
+            what = ("1 shard" if len(devs) == 1 else
+                    f"{len(devs)} shards on {DEVICE!r} and "
+                    f"{DEVICE + ':0'!r} (a graph per device and phase)")
+            check(dist_ba.layout(mesh, "point")
+                  == ("graph" if len(devs) == 1 else "split"),
+                  f"[17b] {name}, {what}: layout "
+                  f"{dist_ba.layout(mesh, 'point')}")
+            solver_vs_eager(
+                f"[17b] {name}_bundle_adjust, {what}, {BA_ITERS} LM "
+                "iterations (ftol 0)",
+                lambda st, m=mesh, s=solve: s(m, *A, max_iters=BA_ITERS,
+                                              ftol=0.0, stats=st),
+                mod.cached_steps)
+    board, views = board_points()
+    intrinsics._STEPS.clear()
+    solver_vs_eager(
+        f"[17b] calibrate_intrinsics, {len(views)} views of "
+        f"{views.shape[1]} points",
+        lambda st: intrinsics.calibrate_intrinsics(board, views,
+                                                   device=card),
+        intrinsics.cached_steps)
+
+    # [17c] time sharding on [14d]'s recording
+    mesh, seq, per_frame, x = temporal_data
+    paths = {}
+    for mode in ("graph", "eager"):
+        reset_launches()
+        with op_by_op(mode):
+            timed_call(lambda: temporal.process_sequence(mesh, seq,
+                                                         per_frame))
+        paths[f"[17c] process_sequence, {mode}"] = read_launches(
+            f"[17c] process_sequence, {mode}", TIME_SHARDS, 0)
+    temporal._BLOCKS.clear()
+    temporal._SMOOTH.clear()
+    solver_vs_eager(
+        f"[17c] process_sequence, {seq.shape[0]} frame sets at time="
+        f"{TIME_SHARDS}",
+        lambda st: temporal.process_sequence(mesh, seq, per_frame),
+        lambda: [s for s in temporal.cached_steps()
+                 if s.name == "process_sequence"])
+    solver_vs_eager(
+        f"[17c] smooth_sharded, {x.shape[0]}x{x.shape[1]} tracks at time="
+        f"{TIME_SHARDS}, halo {SMOOTH_HALO}",
+        lambda st: temporal.smooth_sharded(mesh, x, halo=SMOOTH_HALO),
+        lambda: [s for s in temporal.cached_steps()
+                 if s.name == "smooth_sharded"])
+
+    # [17d] the two helper jits
+    mesh1 = mesh_lib.make_mesh({"time": 1}, devices=[card])
+
+    def rts(st):
+        r = multiprocess._run_rts_assoc(None, mesh1)
+        return (torch.tensor(r["smoothed"]), torch.tensor(r["vs_unsharded"]))
+
+    got = rts({})
+    check(got[1] < 1e-4, f"[17d] rts-assoc: {float(got[1])} from the "
+          "unsharded smoother")
+    steps = []
+    real = multiprocess.rts_smooth_assoc_step
+
+    def keep(*a):
+        steps.append(real(*a))
+        return steps[-1]
+
+    multiprocess.rts_smooth_assoc_step = keep
+    try:
+        solver_vs_eager("[17d] the rts-assoc worker's rts_smooth_assoc "
+                        "(built and captured every call)", rts,
+                        lambda: [s for s in steps if s.graph][-1:])
+    finally:
+        multiprocess.rts_smooth_assoc_step = real
+    eng = EngineConfig()
+    Rr, tr, rr = dif.reference_rig()
+    step = dif.tracking_step(Rr, tr, rr, eng, eng.max_blobs, card)
+    frames = differential_blobs(DIFF_FRAMES, eng.max_blobs)
+
+    def track(st):
+        state = step.state
+        compiled.assign(state, kalman.init_state(2, device=card))
+        out = []
+        for blobs, valid in frames:
+            state, o = step(state, blobs, valid, 1 / 60.0, *step.args[3:])
+            out.append((o.tracked.valid.cpu(), o.tracked.pos.cpu()))
+        return out
+
+    r = solver_vs_eager(f"[17d] the differential harness's tracking step, "
+                        f"{DIFF_FRAMES} frame sets", track, lambda: [step])
+    got = track({})
+    seen = float(np.mean([bool(v.all()) for v, _ in got[SETTLE_FRAMES:]]))
+    check(seen >= LARGE_SEEN, f"[17d] both drones tracked in {seen:.2f} of "
+          "the frame sets after the first SETTLE_FRAMES")
+    print(f"[17d] tracking step: {r['warm_ms'] / DIFF_FRAMES:.3f} ms a frame "
+          f"set against {r['eager_ms'] / DIFF_FRAMES:.3f} eager (one read "
+          "a frame)")
+    print(f"[17] took {time.perf_counter() - t_all:.1f} s")
+    return paths
+
+
+def breakdown_main():
+    """One process's first and second ``calculate-camera-pose`` on [9a]'s
+    wand capture, each stage timed (the card synchronised around it):
+    RANSAC per camera pair (``ransac_fundamental``), the pose bootstrap,
+    each ``bundle_adjust`` call, the first call of each linear-algebra
+    routine (its library's set-up) and of BA's ``jacfwd`` (the first
+    Jacobian: ``torch.func``'s set-up and the first launch of each of its
+    kernels), and the LM chunk's capture where there is one.  Prints one
+    ``BREAKDOWN {...}`` line.  Works against any checkout of the port:
+    ``calibration_breakdown`` runs it in a process of its own."""
+    import torch
+
+    from low_cost_mocap_tpu_torch.config import EngineConfig
+    from low_cost_mocap_tpu_torch.models import calibrator
+    from low_cost_mocap_tpu_torch.ops import ba, ransac
+    from low_cost_mocap_tpu_torch.runtime.engine import Engine
+    from low_cost_mocap_tpu_torch.runtime.serial_link import CollectingLink
+    from low_cost_mocap_tpu_torch.utils import synthetic as syn
+
+    if not torch.cuda.is_available():
+        fail("CUDA is not available")
+    t_proc = time.perf_counter()
+    Rs, ts, rig = syn.ring_rig(num_cameras=4, image_size=320)
+    pts, mask, _ = wand_capture(rig, Rs, ts, WAND_FRAMES)
+    wire = {"cameraPoints": wire_points(pts, mask)}
+    log = {}
+
+    def timer(key, fn):
+        def wrapped(*a, **kw):
+            capturing = torch.cuda.is_current_stream_capturing()
+            if not capturing:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if not capturing:
+                torch.cuda.synchronize()
+                log.setdefault(key, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapped
+
+    ransac.ransac_fundamental = timer("ransac_pair",
+                                      ransac.ransac_fundamental)
+    calibrator.bootstrap_poses = timer("bootstrap", calibrator.bootstrap_poses)
+    ba.bundle_adjust = timer("bundle_adjust", ba.bundle_adjust)
+    first = {}
+    for name in ("eigh", "svd", "solve_ex", "inv_ex", "inv", "det",
+                 "solve"):
+        fn = getattr(torch.linalg, name)
+
+        def once(*a, _fn=fn, _name=name, **kw):
+            if _name in first or torch.cuda.is_current_stream_capturing():
+                return _fn(*a, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            first[_name] = (time.perf_counter() - t0) * 1e3
+            return out
+        setattr(torch.linalg, name, once)
+    real_jacfwd = ba.jacfwd
+
+    def jacfwd(fn, *a, **kw):
+        jf = real_jacfwd(fn, *a, **kw)
+        return once_named("jacfwd", jf)
+
+    def once_named(name, fn):
+        def call(*a, **kw):
+            if name in first or torch.cuda.is_current_stream_capturing():
+                return fn(*a, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            first[name] = (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    ba.jacfwd = jacfwd
+    eng = Engine(rig, EngineConfig(), None, CollectingLink(), device=DEVICE)
+    t_start = (time.perf_counter() - t_proc) * 1e3
+    events = []
+    for k in range(2):
+        log.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.handle("calculate-camera-pose", wire)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+        steps = getattr(ba, "cached_steps", lambda: [])()
+        events.append({
+            "total_ms": total, "ransac_pairs_ms": log.get("ransac_pair", []),
+            "bootstrap_ms": sum(log.get("bootstrap", [])),
+            "ba_calls_ms": log.get("bundle_adjust", []),
+            "capture_ms": sum(s.capture_ms or 0.0 for s in steps)
+            if k == 0 else 0.0,
+            "rest_ms": total - sum(log.get("bootstrap", []))
+            - sum(log.get("bundle_adjust", []))})
+    print("BREAKDOWN " + json.dumps({
+        "package": os.path.abspath(ba.__file__), "setup_ms": t_start,
+        "first_linalg_ms": first, "events": events}))
+
+
+def calibration_breakdown(root):
+    """``breakdown_main`` on the checkout at ``root`` (a directory that
+    holds its ``low_cost_mocap_tpu_torch``) in a process of its own:
+    the parsed ``BREAKDOWN`` dict, printed as [17e]."""
+    script = os.path.abspath(__file__)
+    code = (f"import runpy; runpy.run_path({script!r})['breakdown_main']()")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0,
+          f"breakdown in {root} failed:\n{proc.stderr[-3000:]}")
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("BREAKDOWN ")][-1]
+    res = json.loads(line[len("BREAKDOWN "):])
+    check(res["package"].startswith(os.path.abspath(root)),
+          f"breakdown in {root} imported {res['package']}")
+    for k, ev in enumerate(res["events"]):
+        print(f"[17e] {root}: calculate-camera-pose #{k + 1} in a fresh "
+              f"process: {ev['total_ms']:.1f} ms = bootstrap "
+              f"{ev['bootstrap_ms']:.1f} (RANSAC a pair "
+              + ", ".join(f"{t:.1f}" for t in ev["ransac_pairs_ms"])
+              + ") + BA calls " + ", ".join(f"{t:.1f}"
+                                            for t in ev["ba_calls_ms"])
+              + f" (capture {ev['capture_ms']:.1f} of them) + rest "
+              f"{ev['rest_ms']:.1f}")
+    print(f"[17e] {root}: first calls (ms, in the first event) of BA's "
+          "jacfwd and of the linear-algebra routines: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in res["first_linalg_ms"].items())
+          + f"; process set-up before the event {res['setup_ms']:.1f} ms")
+    return res
 
 
 def main() -> None:
@@ -4040,7 +4586,7 @@ def main() -> None:
         rig, cfg, Rs, ts, frames16)
     paths.update(mesh_paths)
     phase_dist_ba(rig, Rs, ts)
-    temporal_paths, _ = phase_temporal(rig, cfg, Rs, ts)
+    temporal_paths, temporal_data = phase_temporal(rig, cfg, Rs, ts)
     paths.update(temporal_paths)
     phase_cluster()         # other processes: their launches print there
     print(f"[14] took {time.perf_counter() - t14:.1f} s")
@@ -4051,6 +4597,10 @@ def main() -> None:
     paths.update(phase_mesh_graphs(rig, cfg, Rs, ts, frames16))
     paths.update(phase_offline_graphs(offline_data))
     print(f"[16] took {time.perf_counter() - t16:.1f} s")
+    # [17] the solvers' compiled programs, and [9a]'s first event broken
+    # down in a process of its own
+    paths.update(phase_solver_graphs(rig, cfg, Rs, ts, temporal_data))
+    calibration_breakdown(os.path.dirname(os.path.abspath(__file__)))
     det_err = max(det_err, pre_det_err, off_det_err, mesh_det_err)
     bank_err = max(bank_err, bank64_err, bank128_err, off_bank_err,
                    mesh_bank_err)

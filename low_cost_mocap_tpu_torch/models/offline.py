@@ -37,8 +37,12 @@ trackers, the sign alignment) a ``ChunkedScan`` of ``chunk`` frames, and a
 streamed block one step with the trackers over its live frames (one for a
 full block, one for the partial last block).  The causal bank stays one
 kernel launch over T.  On the card each is a CUDA graph captured at its
-first use; on the CPU, and under ``compiled.disable_graphs()``, the same
-steps run op by op over their buffers.  A capture that fails raises.
+first use, but for a streamed block, which is built lazy: its first call
+runs op by op and the capture comes at its second, so the partial last
+block that a call runs once costs what it costs op by op, and is captured
+by the next recording that ends in a block of its length.  On the CPU,
+and under ``compiled.disable_graphs()``, the same steps run op by op over
+their buffers.  A capture that fails raises.
 The cached steps' buffers are shared, so one offline call runs at a time
 in a process, whatever its device: ``process_recording`` and
 ``stream_recording`` hold a module lock (``_LOCK``) for their whole call.
@@ -386,7 +390,8 @@ def stream_recording(frames_u8_seq, Ps, K, dist, to_world_matrix,
     last block is zero-padded and its trackers run over its live frames
     only, so a dead frame leaves every tracker state untouched.  A block is
     one compiled step (``_block``), cached by shape with the number of
-    live frames: one for a full block, one for the partial last block.
+    live frames: one for a full block, one for the partial last block;
+    each built lazy (its first call op by op, its capture at the second).
     Returns (SequenceResult trimmed to T, final state, tensors of its
     own); ``stats``, when given, gets a ``StreamStats``.  One offline call
     runs at a time in a process (``_LOCK``).
@@ -438,7 +443,8 @@ def stream_recording(frames_u8_seq, Ps, K, dist, to_world_matrix,
             tree.tree_map(torch.clone, state),
             torch.zeros((block, C, KB, 3), device=dev),
             torch.zeros((block,), device=dev),
-            *(torch.zeros_like(t) for t in cal), name="stream block"))
+            *(torch.zeros_like(t) for t in cal), name="stream block",
+            lazy=True))
 
     res = None
     with _LOCK, concurrent.futures.ThreadPoolExecutor(

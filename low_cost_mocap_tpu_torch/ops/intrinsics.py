@@ -10,7 +10,11 @@ the 5-term distortion ``[k1, k2, p1, p2, k3]`` of ``ops/camera.py``.
 3. per-view extrinsics from the columns of ``K⁻¹ H``;
 4. joint Levenberg-Marquardt over intrinsics, distortion and per-view
    poses, Marquardt damping with a unit floor, the Jacobian from
-   ``torch.func.jacfwd``.
+   ``torch.func.jacfwd``: ``ops/ba.py``'s chunk of ``ba.CHUNK``
+   iterations over a frozen carry, a CUDA graph on the card kept per
+   (views padded to a multiple of ``VIEW_BUCKET``, points, device);
+   padded views have zero weight, so their residuals, gradient and
+   Hessian block are zero and the damping floor leaves their poses put.
 
 The last right singular vector of an SVD has an arbitrary sign; ``H /
 H[2, 2]`` and the ratios of the conic's entries cancel it, as in the JAX
@@ -20,6 +24,7 @@ port's own numpy copies.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -28,8 +33,13 @@ import torch
 from torch.func import jacfwd
 
 from low_cost_mocap_tpu_torch.device import resolve_device
+from low_cost_mocap_tpu_torch.ops import ba as ba_ops
 from low_cost_mocap_tpu_torch.ops import camera as cam_ops
 from low_cost_mocap_tpu_torch.ops import rotations as rot_ops
+from low_cost_mocap_tpu_torch.runtime import compiled
+
+VIEW_BUCKET = 8      # views are padded to a multiple of it
+_STEPS = compiled.GraphCache()
 
 
 class IntrinsicsResult(NamedTuple):
@@ -149,64 +159,90 @@ def _residuals(p, board3, img_pts, w, V):
     return ((uv - img_pts) * w[..., None]).reshape(-1)
 
 
-def refine(board_xy, img_pts, w, K0, Rs0, ts0, *, max_iters: int = 48):
+def cached_steps() -> list:
+    """The compiled LM chunks the cache holds."""
+    return [st.step for st in _STEPS.values()]
+
+
+def pad_views(img_pts, w, Rs0, ts0):
+    """(V, N, 2) points, (V, N) weights and (V, 3, 3), (V, 3) poses padded
+    to a multiple of ``VIEW_BUCKET`` views: zero points and weights, the
+    board 1 m straight ahead."""
+    V, N = img_pts.shape[0], img_pts.shape[1]
+    pad = -V % VIEW_BUCKET
+    if not pad:
+        return img_pts, w, Rs0, ts0
+    eye = torch.eye(3, dtype=Rs0.dtype, device=Rs0.device)
+    return (torch.cat([img_pts, img_pts.new_zeros((pad, N, 2))]),
+            torch.cat([w, w.new_zeros((pad, N))]),
+            torch.cat([Rs0, eye.expand(pad, 3, 3)]),
+            torch.cat([ts0, ts0.new_tensor([0.0, 0.0, 1.0]).expand(pad, 3)]))
+
+
+def _cost(r):
+    return 0.5 * (r * r).sum()
+
+
+def _iteration(st, board3, img_pts, w, *, V: int):
+    """One LM iteration over the (padded) views."""
+    def res_with_aux(q):
+        r = _residuals(q, board3, img_pts, w, V)
+        return r, r
+
+    J, r = jacfwd(res_with_aux, has_aux=True)(st.p)            # (M, P)
+    H = J.T @ J
+    g = J.T @ r
+    # the damped diagonal is floored at lam: a fully masked view zeroes
+    # its block of H, which damping by diag(H) alone leaves singular
+    damp = torch.clamp_min(torch.diagonal(H), 1.0)
+    eye = torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
+    delta = torch.linalg.solve_ex(H + st.lam * (eye * damp), -g)[0]
+    p1 = st.p + delta
+    c1 = _cost(_residuals(p1, board3, img_pts, w, V))
+    return ba_ops.lm_advance(st, p1, c1, tol=1e-10, lam_min=1e-12,
+                             lam_up=5.0, cost_min=1e-18)[0]
+
+
+def refine(board_xy, img_pts, w, K0, Rs0, ts0, *, max_iters: int = 48,
+           stats: dict | None = None):
     """Joint LM over intrinsics, distortion and per-view poses.
 
     board_xy: (N, 2) target points (z = 0, metres); img_pts: (V, N, 2)
-    pixels; w: (V, N) weights.  The loop stops at the first converged step
-    (the JAX package's scan freezes its carry there) and reads one flag
-    from the device per iteration.  Returns (K, dist, Rs, ts, rms_px,
-    accepted_iters).
+    pixels; w: (V, N) weights.  The views are padded to a multiple of
+    ``VIEW_BUCKET`` with zero-weight views.  Returns (K, dist, Rs, ts,
+    rms_px, accepted_iters).  ``stats``, when given, gets ``iterations``
+    (the LM iterations run until ``done``, the one that set it included,
+    at most ``max_iters``), ``chunks`` and ``reads`` (``ops.ba.lm_run``).
     """
-    V = img_pts.shape[0]
+    V, N = img_pts.shape[0], img_pts.shape[1]
+    dev, dt = img_pts.device, img_pts.dtype
     img_pts = torch.where(w[..., None] > 0, img_pts, 0.0)
+    img_pts, w, Rs0, ts0 = pad_views(img_pts, w, Rs0, ts0)
+    Vb = img_pts.shape[0]
     board3 = torch.cat([board_xy, torch.zeros_like(board_xy[:, :1])], dim=-1)
     rv0 = rot_ops.matrix_to_rotvec(Rs0)
-    p = torch.cat([
+    p0 = torch.cat([
         torch.stack([K0[0, 0], K0[1, 1], K0[0, 2], K0[1, 2]]),
         torch.zeros(5, dtype=K0.dtype, device=K0.device),
         torch.cat([rv0, ts0], dim=-1).reshape(-1),
     ])
-    nparam = p.shape[0]
-
-    def res_fn(q):
-        return _residuals(q, board3, img_pts, w, V)
-
-    def res_with_aux(q):
-        r = res_fn(q)
-        return r, r
-
-    def cost_of(r):
-        return 0.5 * (r * r).sum()
-
-    eye = torch.eye(nparam, dtype=p.dtype, device=p.device)
-    lam = torch.tensor(1e-3, dtype=p.dtype, device=p.device)
-    cost = cost_of(res_fn(p))
-    n_acc = torch.zeros((), dtype=torch.int64, device=p.device)
-    for _ in range(max_iters):
-        J, r = jacfwd(res_with_aux, has_aux=True)(p)           # (M, P)
-        H = J.T @ J
-        g = J.T @ r
-        # the damped diagonal is floored at lam: a fully masked view zeroes
-        # its block of H, which damping by diag(H) alone leaves singular
-        damp = torch.clamp_min(torch.diagonal(H), 1.0)
-        delta = torch.linalg.solve_ex(H + lam * (eye * damp), -g)[0]
-        p1 = p + delta
-        c1 = cost_of(res_fn(p1))
-        accept = c1 < cost
-        rel = (cost - c1) / torch.clamp_min(cost, 1e-18)
-        done = accept & (rel < 1e-10)
-        p = torch.where(accept, p1, p)
-        lam = torch.where(accept, torch.clamp_min(lam * 0.3, 1e-12), lam * 5.0)
-        cost = torch.where(accept, c1, cost)
-        n_acc = n_acc + accept
-        if bool(done):       # the loop's one read from the device
-            break
-    K, dist, Rs, ts = _unpack(p, V)
+    consts = (board3, img_pts, w)
+    with ba_ops._LOCK:
+        carry = ba_ops.lm_start(p0, _cost(_residuals(p0, *consts, Vb)),
+                                max_iters)
+        st = ba_ops.lm_run((Vb, N, ba_ops.CHUNK, dev, dt),
+                           lambda: compiled.ChunkedScan(
+                               functools.partial(_iteration, V=Vb), carry,
+                               (), ba_ops.CHUNK, consts=consts,
+                               stop=ba_ops.stopped, lazy=True,
+                               name="intrinsics refine"),
+                           carry, max_iters, consts, cache=_STEPS,
+                           stats=stats)
+    K, dist, Rs, ts = _unpack(st.p, Vb)
     n_valid = torch.clamp_min(w.sum(), 1.0)
     # OpenCV calibrateCamera's convention: sqrt(sum ||e_i||² / n_points)
-    rms = torch.sqrt(2.0 * cost / n_valid)
-    return K, dist, Rs, ts, rms, n_acc
+    rms = torch.sqrt(2.0 * st.cost / n_valid)
+    return K, dist, Rs[:V], ts[:V], rms, st.n_acc
 
 
 def calibrate_intrinsics(board_xy, img_pts, mask=None, *,

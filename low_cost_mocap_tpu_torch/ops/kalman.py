@@ -298,8 +298,9 @@ def rts_elements(xs, Ps, dts, *, process_noise: float = 1e-2):
     F = _transition(dts[1:])                                  # (T-1, 9, 9)
     x_pred = torch.einsum("tij,toj->toi", F, xs[:-1])
     P_pred = torch.einsum("tij,tojk,tlk->toil", F, Ps[:-1], F) + Q
+    # inv_ex: no check that reads the result back to the host
     C = torch.einsum("toij,tkj,tokl->toil", Ps[:-1], F,
-                     torch.linalg.inv(P_pred))
+                     torch.linalg.inv_ex(P_pred).inverse)
     g = xs[:-1] - torch.einsum("toij,toj->toi", C, x_pred)
     L = Ps[:-1] - torch.einsum("toij,tojk,tolk->toil", C, P_pred, C)
     return C, g, L

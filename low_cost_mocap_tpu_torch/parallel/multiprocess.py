@@ -284,6 +284,27 @@ def _run_batched_sharded(args, mesh) -> dict:
             "wall_s": wall}
 
 
+def _rts_assoc(state, xs, Ps, dts):
+    from low_cost_mocap_tpu_torch.ops import kalman
+
+    return state, kalman.rts_smooth_assoc(xs, Ps, dts)[0]
+
+
+def rts_smooth_assoc_step(xs, Ps, dts):
+    """The unsharded ``kalman.rts_smooth_assoc`` the rts-assoc worker
+    holds its result to, as one ``CompiledStep`` over buffers shaped like
+    ``xs``, ``Ps`` and ``dts`` (JAX's ``jax.jit`` of it): called with
+    ((), xs, Ps, dts) -> ((), the (T, O, 9) smoothed means), a CUDA graph
+    on the card, op by op on the CPU."""
+    import torch
+
+    from low_cost_mocap_tpu_torch.runtime import compiled
+
+    return compiled.CompiledStep(
+        _rts_assoc, (), *(torch.empty_like(t) for t in (xs, Ps, dts)),
+        name="rts_smooth_assoc")
+
+
 def _run_rts_assoc(args, mesh) -> dict:
     """The RTS smoother's associative scan with the sequence sharded over
     time: each shard scans its block of the backward recursion's affine
@@ -351,7 +372,7 @@ def _run_rts_assoc(args, mesh) -> dict:
     sm = torch.cat([sm[k, :len(b)] for k, b in enumerate(bounds)]
                    + [xs[-1:]]).cpu().numpy()
     wall = time.perf_counter() - t0
-    one, _ = kalman.rts_smooth_assoc(xs, Ps, dts)
+    one = rts_smooth_assoc_step(xs, Ps, dts)((), xs, Ps, dts)[1]
     return {"smoothed": sm.tolist(),
             "vs_unsharded": float(np.abs(sm - one.cpu().numpy()).max()),
             "rmse_vs_truth_mm": float(np.sqrt(

@@ -20,27 +20,37 @@ calibration is copied into the calibration buffers in place
 without any error.
 
 On the card the step is a CUDA graph.  At the first call the step warms up
-on a side stream (``WARMUP_CALLS`` calls on a scratch copy of the state,
-which also run each kernel launcher's one-time set-up), is captured in the
-thread-local mode (other threads' launches and event waits go on), and is
-then replayed at every call.  A capture that fails raises: nothing falls
-back to launching the step op by op.  Its outputs are tensors of the
-graph's memory pool that the next replay overwrites, so a caller reads
-them, or enqueues their copy on the same stream, before the next call.
+on a side stream, one a device and thread (``WARMUP_CALLS`` calls on a
+scratch copy of the state, which also run each kernel launcher's one-time
+set-up), is captured in the thread-local mode (other threads' launches and
+event waits go on), and is then replayed at every call.  A capture that
+fails raises: nothing falls back to launching the step op by op.  Its
+outputs are tensors of the graph's memory pool that the next replay
+overwrites, so a caller reads them, or enqueues their copy on the same
+stream, before the next call.
 On the CPU the same buffers serve an eager call of ``fn``, with the same
 donation; so does every call inside ``disable_graphs()`` (the counterpart
 of ``jax.disable_jit``), on its thread: the reference a graph is held to.
 
 The kernel wrappers count the launches made from Python: a capture's
 count is taken back (it launched nothing) and added again at each replay.
-``replays`` counts the graph replays, ``warmup_launches`` the kernel
-launches of the warm-up calls.
+``replays`` counts the graph replays, ``captures`` the captures,
+``warmup_launches`` the kernel launches of the warm-up calls.
 
 ``ChunkedScan`` runs a per-frame loop over a recording of any length T as
 one ``CompiledStep`` of a fixed number of frames, replayed once a chunk
 (the JAX package's ``lax.scan`` inside a jitted program, without a program
-per T); ``GraphCache`` keeps such steps, at most ``CACHE_SIZE`` of them,
-as JAX's ``lru_cache(maxsize=16)`` keeps compiled programs.
+per T), and an iterative solver's loop as one step of a fixed number of
+iterations, replayed until a stop flag is set (``run_until``: the JAX
+package's fixed-length ``lax.scan`` over a frozen carry);
+``GraphCache`` keeps such steps, at most ``CACHE_SIZE`` of them, as JAX's
+``lru_cache(maxsize=16)`` keeps compiled programs.
+
+A step built ``lazy`` runs its first call op by op on the side stream: that
+call is its warm-up, and the capture waits for the second call, so a step
+called once costs no more than the step op by op.  A lazy loop of
+``ChunkedScan.run_until`` runs its whole first run so (a solver's first
+call at a new shape), and captures at the next run.
 """
 
 from __future__ import annotations
@@ -62,6 +72,7 @@ CACHE_SIZE = 16
 _WRAPPERS = (detect_cuda, kalman_cuda)
 
 replays = 0
+captures = 0
 warmup_launches = {w.NAME: 0 for w in _WRAPPERS}
 _local = threading.local()
 
@@ -107,6 +118,20 @@ def _put(buf: torch.Tensor, x) -> None:
         raise ValueError(f"a number for a {tuple(buf.shape)} buffer")
 
 
+def side_stream(dev: torch.device):
+    """The stream on which this thread warms up and captures the steps of
+    ``dev``: one a device and thread, so that the blocks the allocator
+    caches for it serve every step's warm-up (a new stream starts with
+    none: a step run op by op on it allocates its whole working set)."""
+    streams = getattr(_local, "streams", None)
+    if streams is None:
+        streams = _local.streams = {}
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    if index not in streams:
+        streams[index] = torch.cuda.Stream(torch.device("cuda", index))
+    return streams[index]
+
+
 def _counts() -> list:
     return [w.launches for w in _WRAPPERS]
 
@@ -124,19 +149,27 @@ class CompiledStep:
     After the capture ``capture_ms`` is its wall time (the warm-up
     excluded) and ``pool_bytes`` the device memory its pool reserved;
     ``launches_per_replay`` the kernel wrappers' launches a replay makes.
+
+    ``lazy``: on the card the first call runs ``fn`` op by op over the
+    buffers on the side stream (``warm_call``), in place of the
+    ``WARMUP_CALLS`` warm-up calls, and the capture comes at the second
+    call.
     """
 
-    def __init__(self, fn, state, *args, name: str = "step"):
+    def __init__(self, fn, state, *args, name: str = "step",
+                 lazy: bool = False):
         self.fn = fn
         self.name = name
         self.state = state
         self.args = args
         self.device = leaves((state, args))[0].device
+        self.lazy = lazy
         self.graph = None
         self.out = None
         self.capture_ms = None
         self.pool_bytes = None
         self.launches_per_replay = None
+        self._stream = None
 
     def __call__(self, state, *args):
         """Copy ``state`` and ``args`` into the buffers (nothing for the
@@ -148,6 +181,8 @@ class CompiledStep:
             return self.eager(state, *args)
         self._load(state, args)
         if self.graph is None:
+            if self.lazy and self._stream is None:
+                return self._on_stream()
             self._capture()
         self.graph.replay()
         replays += 1
@@ -172,20 +207,48 @@ class CompiledStep:
         for buf, x in zip(self.args, args):
             assign(buf, x)
 
+    def warm_call(self, state, *args):
+        """A call that runs the step op by op, never captures: a lazy
+        step's first call, which any number of calls may precede.  On the
+        card it runs on the stream the capture will use, so each library's
+        one-time set-up for that stream happens here, outside the
+        capture, and a lazy step captures at its next ``__call__``."""
+        if self.device.type != "cuda" or getattr(_local, "eager", False):
+            return self.eager(state, *args)
+        self._load(state, args)
+        return self._on_stream()
+
+    def _on_stream(self):
+        dev = self.device
+        cur = torch.cuda.current_stream(dev)
+        if self._stream is None:
+            self._stream = side_stream(dev)
+        stream = self._stream
+        stream.wait_stream(cur)
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            new, out = self.fn(self.state, *self.args)
+            assign(self.state, new)
+        cur.wait_stream(stream)
+        for t in leaves(out):
+            t.record_stream(cur)
+        return self.state, out
+
     def _capture(self) -> None:
         dev = self.device
-        stream = torch.cuda.Stream(dev)
-        before = _counts()
-        scratch = tree_map(torch.clone, self.state)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.device(dev), torch.cuda.stream(stream):
-            for _ in range(WARMUP_CALLS):
-                self.fn(scratch, *self.args)
-        torch.cuda.current_stream(dev).wait_stream(stream)
         warm = _counts()
-        for w, a, b in zip(_WRAPPERS, before, warm):
-            warmup_launches[w.NAME] += b - a
-        del scratch
+        if self._stream is None:
+            self._stream = side_stream(dev)
+            scratch = tree_map(torch.clone, self.state)
+            self._stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.device(dev), torch.cuda.stream(self._stream):
+                for _ in range(WARMUP_CALLS):
+                    self.fn(scratch, *self.args)
+            torch.cuda.current_stream(dev).wait_stream(self._stream)
+            before, warm = warm, _counts()
+            for w, a, b in zip(_WRAPPERS, before, warm):
+                warmup_launches[w.NAME] += b - a
+            del scratch
+        stream = self._stream
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
@@ -201,6 +264,8 @@ class CompiledStep:
             captured = [n - w for n, w in zip(_counts(), warm)]
             for w, n in zip(_WRAPPERS, warm):
                 w.launches = n
+        global captures
+        captures += 1
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.launches_per_replay = captured
@@ -240,7 +305,8 @@ class GraphCache:
 class ChunkedScan:
     """A per-frame loop ``step(carry, *x_k) -> (carry, y_k)`` over T frames,
     whatever T, as one ``CompiledStep`` of ``length`` frames replayed once
-    a chunk.
+    a chunk; or, with no ``xs``, an iterative loop ``step(carry, *consts)
+    -> carry`` as one step of ``length`` iterations (``run_until``).
 
     Built from an example ``carry`` and example sequences ``xs`` ((T, ...)
     tensors; only their trailing shapes, dtypes and device count).  ``run``
@@ -252,17 +318,41 @@ class ChunkedScan:
     depends on them, and the carry after them is not returned.  A step
     that reads a value to the host cannot be captured: the capture raises.
     The buffers are the step's: its user runs one ``run`` at a time.
+
+    ``consts``: example buffers of an iterative loop's other arguments,
+    copied in at each ``run_until``; ``stop(carry)``: its stop flag (a
+    bool tensor), read between two chunks and, where a chunk runs op by
+    op (the CPU, ``disable_graphs()``, a lazy loop's first run), after
+    each iteration, ending the chunk early as the loop it replaces did.
+    ``chunk``: in place of ``step``, an
+    object called like a ``CompiledStep`` (``chunk(carry, *consts) ->
+    (carry, ())`` over buffers ``chunk.args``) that runs ``length``
+    iterations itself, as a solver spread over several devices does with
+    a graph per device.  ``chunks`` and ``reads`` count the chunks
+    ``run_until`` replayed and the stop flags it read, over the step's
+    life.
     """
 
     def __init__(self, step, carry, xs, length: int, *, reverse=False,
-                 name: str = "scan"):
+                 consts=(), stop=None, lazy: bool = False,
+                 name: str = "scan", chunk=None):
         self.length = int(length)
         self.reverse = reverse
-        bufs = tuple(torch.zeros((self.length,) + tuple(x.shape[1:]),
-                                 dtype=x.dtype, device=x.device) for x in xs)
-        self.step = CompiledStep(
-            functools.partial(scan, step, reverse=reverse),
-            tree_map(torch.clone, carry), *bufs, name=name)
+        self.stop = stop
+        self.chunks = self.reads = 0
+        if chunk is not None:
+            self.step = chunk
+            return
+        if xs:
+            fn = functools.partial(scan, step, reverse=reverse)
+            bufs = tuple(torch.zeros((self.length,) + tuple(x.shape[1:]),
+                                     dtype=x.dtype, device=x.device)
+                         for x in xs)
+        else:
+            fn = functools.partial(_repeat, step, self.length, stop)
+            bufs = tuple(tree_map(torch.clone, c) for c in consts)
+        self.step = CompiledStep(fn, tree_map(torch.clone, carry), *bufs,
+                                 name=name, lazy=lazy)
 
     def run(self, carry, *xs):
         """The ys of the loop (``utils.tree.scan``) from ``carry`` over
@@ -282,6 +372,45 @@ class ChunkedScan:
             for dst, y in zip(leaves(ys), leaves(out)):
                 dst[a:b].copy_(y[a - lo:b - lo])
         return ys
+
+    def run_until(self, carry, iterations: int, *consts):
+        """The iterative loop from ``carry`` over ``consts``: the chunk
+        replayed ``ceil(iterations / length)`` times, ``stop`` read once
+        between two chunks, ending the loop when it is set.  The step must
+        leave its carry unchanged once it has stopped (or spent its
+        budget), so the iterations a graph runs past that point change
+        nothing.  A lazy loop's first run goes op by op
+        (``CompiledStep.warm_call``), and the next run captures: a solver
+        called once at a shape costs what it costs op by op.  Returns the
+        final carry: the step's buffers, which the next run overwrites."""
+        state, args = carry, consts
+        call = self.step
+        if getattr(call, "lazy", False) and self.chunks == 0:
+            call = call.warm_call
+        for c in range(-(-int(iterations) // self.length)):
+            if c:
+                self.reads += 1
+                if bool(self.stop(state)):
+                    break
+            state, _ = call(state, *args)
+            self.chunks += 1
+            args = self.step.args
+        return state
+
+
+def _repeat(step, n: int, stop, carry, *consts):
+    """``n`` iterations of ``step(carry, *consts) -> carry``; outside a
+    capture, the first iteration that sets ``stop`` ends them (the carry
+    would not change after it)."""
+    for _ in range(n):
+        carry = step(carry, *consts)
+        if stop is not None:
+            flag = stop(carry)
+            if not (flag.device.type == "cuda"
+                    and torch.cuda.is_current_stream_capturing()) \
+                    and bool(flag):
+                break
+    return carry, ()
 
 
 def _padded(x, a, b, at, length):

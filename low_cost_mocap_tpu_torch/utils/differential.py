@@ -91,6 +91,48 @@ def _pos_b(t):
                      0.7 + 0.1 * np.cos(0.7 * t), 0.3 * np.cos(0.6 * t)])
 
 
+def tracking_step(Rs, ts, rig: RigConfig, eng: EngineConfig,
+                  max_blobs: int, device):
+    """This framework's side of the harness: ``track_from_blobs`` on two
+    drones as one ``runtime.compiled.CompiledStep`` (JAX's ``jax.jit`` of
+    it): its Kalman state is its buffers, donated as the Engine's steps
+    are, and its calibration (Ps, K, dist, the world matrix, the pairwise
+    fundamentals) buffers of its own.  Called with (state, (4, max_blobs,
+    2) blobs, (4, max_blobs) valid, dt, *step.args[3:]) -> (the state
+    buffers, the frame's outputs, overwritten by the next call): a CUDA
+    graph on the card, op by op on the CPU."""
+    import functools
+
+    import torch
+
+    from low_cost_mocap_tpu_torch.models.pipeline import track_from_blobs
+    from low_cost_mocap_tpu_torch.ops import (camera as cam_ops, correspond,
+                                              kalman)
+    from low_cost_mocap_tpu_torch.runtime import compiled
+
+    dev = torch.device(device)
+    C = len(Rs)
+    K = torch.as_tensor(rig.K_stack(), device=dev)
+    dist = torch.as_tensor(rig.dist_stack(), device=dev)
+    Ps = cam_ops.projection_matrix(K, torch.as_tensor(Rs, device=dev),
+                                   torch.as_tensor(ts, device=dev))
+    Fs = correspond._pairwise_fundamentals(Ps)
+    M = torch.eye(4, device=dev)
+    fn = functools.partial(
+        track_from_blobs, gate_px=eng.epipolar_gate_px,
+        max_candidates=eng.max_candidates_per_cam,
+        marker_dist1=rig.marker_dist_short,
+        marker_dist2=rig.marker_dist_long,
+        marker_tol=rig.marker_dist_tol,
+        marker_side_min=rig.marker_side_min)
+    return compiled.CompiledStep(
+        fn, kalman.init_state(2, device=dev),
+        torch.zeros((C, max_blobs, 2), device=dev),
+        torch.zeros((C, max_blobs), dtype=torch.bool, device=dev),
+        torch.zeros((), device=dev), Ps, K, dist, M, Fs,
+        name="differential step")
+
+
 def run_differential(T: int = 240, noise_px: float = 0.3, seed: int = 7,
                      ref_own_correspondence: bool = True,
                      occlusions=(), n_distractors: int = 0,
@@ -140,14 +182,7 @@ def run_differential(T: int = 240, noise_px: float = 0.3, seed: int = 7,
 
     ``device``: where the port's pipeline runs (CUDA by default).
     """
-    import functools
-
-    import torch
-
     from low_cost_mocap_tpu_torch.device import resolve_device
-    from low_cost_mocap_tpu_torch.models.pipeline import track_from_blobs
-    from low_cost_mocap_tpu_torch.ops import (camera as cam_ops, correspond,
-                                              kalman)
 
     dev = resolve_device(device)
 
@@ -169,20 +204,8 @@ def run_differential(T: int = 240, noise_px: float = 0.3, seed: int = 7,
     poses = [{"R": Rs[i].tolist(), "t": ts[i].tolist()} for i in range(4)]
     kf_ref = ref.KalmanFilter.KalmanFilter(2)
 
-    K = torch.as_tensor(rig.K_stack(), device=dev)
-    dist = torch.as_tensor(rig.dist_stack(), device=dev)
-    Ps = cam_ops.projection_matrix(K, torch.as_tensor(Rs, device=dev),
-                                   torch.as_tensor(ts, device=dev))
-    Fs = correspond._pairwise_fundamentals(Ps)
-    M = torch.eye(4, device=dev)
-    step = functools.partial(
-        track_from_blobs, gate_px=eng.epipolar_gate_px,
-        max_candidates=eng.max_candidates_per_cam,
-        marker_dist1=rig.marker_dist_short,
-        marker_dist2=rig.marker_dist_long,
-        marker_tol=rig.marker_dist_tol,
-        marker_side_min=rig.marker_side_min)
-    st = kalman.init_state(2, device=dev)
+    step = tracking_step(Rs, ts, rig, eng, KB, dev)
+    st = step.state
 
     ref_tracks = {0: {}, 1: {}}
     repo_tracks = {0: {}, 1: {}}
@@ -266,9 +289,7 @@ def run_differential(T: int = 240, noise_px: float = 0.3, seed: int = 7,
                 r["pos"], np.float64).copy()
 
         # ---- this framework ----
-        st, out = step(st, torch.as_tensor(blobs, device=dev),
-                       torch.as_tensor(valid, device=dev), np.float32(dt),
-                       Ps, K, dist, M, Fs)
+        st, out = step(st, blobs, valid, dt, *step.args[3:])
         tv = out.tracked.valid.cpu().numpy()
         tp = out.tracked.pos.cpu().numpy()
         for o in range(2):

@@ -594,8 +594,9 @@ def test_offline_graphs_equal_the_steps_op_by_op_on_the_card(card):
     packed and sparse frames (chunks of 6 over 2 * N_FRAMES + 3 frame sets,
     the last chunk padded) and ``stream_recording`` (blocks of 8, the last
     partial) against the same calls under ``compiled.disable_graphs``:
-    every output bitwise equal; a second call at another length captures
-    nothing."""
+    every output bitwise equal, at the first calls (a streamed block is
+    lazy: op by op at its first call) and at the second (every step a
+    graph); a call at another length captures nothing."""
     from low_cost_mocap_tpu_torch.models import offline
     from low_cost_mocap_tpu_torch.ops import camera
 
@@ -629,14 +630,173 @@ def test_offline_graphs_equal_the_steps_op_by_op_on_the_card(card):
                 offline.stream_recording(frames, *cal, rig, cfg, dts=dts,
                                          block=8)[0])
 
+    first = calls()
+    got = calls()
+    with compiled.disable_graphs():
+        want = calls()
+    for out in (first, got):
+        for a, b in zip(leaves(out), leaves(want)):
+            assert (_same_bits(a, b) if a.dtype == torch.float32
+                    else torch.equal(a, b))
+    steps = offline.cached_steps()
+    assert steps and all(s.graph is not None for s in steps)
+    offline.process_recording(tuple(a[:T - 7] for a in blobs), *cal, rig,
+                              cfg, dts=dts[:T - 7], chunk=6, smooth=True)
+    assert len(offline.cached_steps()) == len(steps)
+
+
+def _ba_scene(n, device, seed=3):
+    """A perturbed 4-camera ring in camera 0's gauge: (points, mask, K,
+    Rs, ts) on ``device``."""
+    from low_cost_mocap_tpu_torch.ops import rotations
+
+    Rs, ts, rig = syn.ring_rig(num_cameras=4)
+    rng = np.random.default_rng(seed)
+    pts, mask = syn.observe(syn.random_points(rng, n), Rs, ts, rig,
+                            noise_px=0.3, rng=rng)
+    Rs = np.einsum("cij,jk->cik", Rs, Rs[0].T).astype(np.float32)
+    ts = (ts - np.einsum("cij,j->ci", Rs, ts[0])).astype(np.float32)
+    dR = rotations.rotvec_to_matrix(torch.as_tensor(rng.normal(
+        scale=0.02, size=(4, 3)).astype(np.float32))).numpy()
+    Rs = np.einsum("cij,cjk->cik", dR, Rs).astype(np.float32)
+    ts = (ts + rng.normal(scale=0.03, size=ts.shape)).astype(np.float32)
+    Rs[0], ts[0] = np.eye(3, dtype=np.float32), 0
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (pts, mask, rig.K_stack(), Rs, ts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["ba", "ba frozen", "dist", "schur",
+                                    "dist split", "schur split",
+                                    "intrinsics"])
+def test_solver_graphs_equal_the_chunks_op_by_op_on_the_card(card, solver):
+    """Each LM solver's chunk graph (the first call at a bucket runs its
+    first chunk op by op and captures at the second) against the same
+    call under ``compiled.disable_graphs``: every output bitwise equal, the
+    same iterations, chunks and reads; a call of another size in the same
+    bucket captures nothing.  "split": the sharded solvers on a mesh of
+    "cuda" and "cuda:0", two devices that are one card, laid out as on
+    several cards (a graph per device and phase)."""
+    from low_cost_mocap_tpu_torch.ops import ba, intrinsics
+    from low_cost_mocap_tpu_torch.parallel.dist_ba import dist_bundle_adjust
+    from low_cost_mocap_tpu_torch.parallel.schur_ba import \
+        schur_bundle_adjust
+
+    pts, mask, K, Rs, ts = _ba_scene(300, card)
+    mesh = make_mesh({"point": 4}, devices=(
+        ["cuda", "cuda:0"] * 2 if solver.endswith("split") else [card] * 4))
+    if solver.startswith("ba"):
+        def call(n, stats):
+            return ba.bundle_adjust(
+                pts[:n], mask[:n], K, Rs, ts, num_cameras=4, max_iters=20,
+                ftol=0.0, freeze_focals=solver == "ba frozen", stats=stats)
+    elif solver == "intrinsics":
+        board = intrinsics.make_grid(5, 7, 0.04)
+        b3 = torch.as_tensor(np.concatenate(
+            [board, np.zeros((35, 1), np.float32)], -1), device=card)
+        img = torch.stack([camera_project(b3, v, card) for v in range(7)])
+
+        def call(n, stats):          # n views, padded to 8
+            return intrinsics.calibrate_intrinsics(
+                board, img[:n].cpu().numpy(), device=card)
+    else:
+        solve = (dist_bundle_adjust if solver.startswith("dist")
+                 else schur_bundle_adjust)
+
+        def call(n, stats):
+            return solve(mesh, pts[:n], mask[:n], K, Rs, ts, max_iters=20,
+                         ftol=0.0, stats=stats)
+
+    n0, n1 = (7, 6) if solver == "intrinsics" else (300, 280)
+    got, stats = [], [{}, {}]
+    for s in stats:
+        got.append(call(n0, s))
+    with compiled.disable_graphs():
+        want_stats = {}
+        want = call(n0, want_stats)
+    for g in got:
+        for a, b in zip(leaves(tuple(g)), leaves(tuple(want))):
+            assert (_same_bits(a, b) if a.dtype == torch.float32
+                    else torch.equal(a, b))
+    if solver != "intrinsics":
+        assert stats[0] == stats[1] == want_stats
+        assert want_stats["chunks"] == 3 and want_stats["iterations"] == 20
+    before = compiled.captures
+    call(n1, {})
+    assert compiled.captures == before
+
+
+def camera_project(board3, view, device):
+    """The board seen in one of 7 views through a distorted camera."""
+    from low_cost_mocap_tpu_torch.ops import camera, rotations
+
+    rng = np.random.default_rng(view)
+    R = rotations.rotvec_to_matrix(torch.as_tensor(np.deg2rad(
+        rng.uniform(-30, 30, 3)).astype(np.float32), device=device))
+    t = torch.tensor([-0.12, -0.08, rng.uniform(0.55, 0.8)],
+                     dtype=torch.float32, device=device)
+    K = torch.tensor([[300.0, 0, 162], [0, 295, 158], [0, 0, 1]],
+                     device=device)
+    d = torch.tensor([0.08, -0.12, 0.001, -0.0005, 0.05], device=device)
+    return camera.project_points(board3, R[None], t[None], K[None],
+                                 d[None])[0]
+
+
+@pytest.mark.cuda
+def test_time_sharding_and_helper_graphs_equal_op_by_op_on_the_card(card):
+    """``process_sequence`` (the detection kernel a shard),
+    ``smooth_sharded``, the rts-assoc worker's compiled reference and the
+    differential harness's tracking step against the same calls under
+    ``compiled.disable_graphs``: bitwise equal."""
+    from low_cost_mocap_tpu_torch.config import EngineConfig as Cfg
+    from low_cost_mocap_tpu_torch.ops import detect_cuda
+    from low_cost_mocap_tpu_torch.parallel import multiprocess, temporal
+    from low_cost_mocap_tpu_torch.utils import differential
+
+    Rs, ts, rig, src = _scene()
+    cfg = EngineConfig()
+    frames = torch.as_tensor(np.stack([src.read_at(i / 60)
+                                       for i in range(16)]))
+    mesh = make_mesh({"time": 4}, devices=[card] * 4)
+
+    def per_frame(block):
+        f = block.to(torch.float32) * (1.0 / 255.0)
+        c, v, _ = detect_cuda.find_blobs(f.reshape(-1, *f.shape[2:]),
+                                         cfg.detect_threshold, cfg.max_blobs,
+                                         cfg.cc_iters)
+        return c, v
+
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor(np.cumsum(rng.normal(size=(256, 3)).astype(
+        np.float32), 0) * 0.01, device=card)
+    xs = torch.as_tensor(rng.normal(size=(24, 1, 9)).astype(np.float32),
+                         device=card)
+    A = rng.normal(size=(24, 1, 9, 9)).astype(np.float32) * 0.1
+    Ps = torch.as_tensor(A @ A.transpose(0, 1, 3, 2)
+                         + np.eye(9, dtype=np.float32), device=card)
+    dts = torch.full((24,), 1 / 60, device=card)
+    Rr, tr, rr = differential.reference_rig()
+    step = differential.tracking_step(Rr, tr, rr, Cfg(), 8, card)
+    blobs = np.random.default_rng(2).uniform(40, 280, (10, 4, 8, 2))
+
+    def calls():
+        out = [temporal.process_sequence(mesh, frames, per_frame)
+               for _ in range(2)]
+        out += [temporal.smooth_sharded(mesh, x, halo=32) for _ in range(2)]
+        rts = multiprocess.rts_smooth_assoc_step(xs, Ps, dts)
+        out.append(rts((), xs, Ps, dts)[1].clone())
+        st = step.state
+        compiled.assign(st, kalman.init_state(2, device=card))
+        for b in blobs:
+            st, o = step(st, b.astype(np.float32), np.ones((4, 8), bool),
+                         1 / 60, *step.args[3:])
+            out.append(o.tracked.pos.clone())
+        return out
+
     got = calls()
     with compiled.disable_graphs():
         want = calls()
     for a, b in zip(leaves(got), leaves(want)):
         assert (_same_bits(a, b) if a.dtype == torch.float32
                 else torch.equal(a, b))
-    steps = offline.cached_steps()
-    assert steps and all(s.graph is not None for s in steps)
-    offline.process_recording(tuple(a[:T - 7] for a in blobs), *cal, rig,
-                              cfg, dts=dts[:T - 7], chunk=6, smooth=True)
-    assert len(offline.cached_steps()) == len(steps)
+    assert step.graph is not None
