@@ -37,7 +37,8 @@ cc_iters 24, 2 candidates per camera, 2 drones, batches of 128:
    the wrapper, median of 20 calls) and the device time (``torch.profiler``,
    every kernel, memset and copy of 20 calls, each launch's record held),
    measured in a process of its own: the profiler keeps fewer of a short
-   session's records the older the process is;
+   session's records the older the process is; the bank's forward filter
+   at B = 1,500, M = 32 beside them;
 7. where a served frame's time goes, for detection on the card and on the
    host: each stage timed alone, then device busy time, kernels and copies
    per frame under ``torch.profiler``, and the idle share of each serving
@@ -77,7 +78,9 @@ cc_iters 24, 2 candidates per camera, 2 drones, batches of 128:
    once a chunk) and from host-detected blobs, ``stream_recording``, and
    ``smooth=True``; the causal tracks bitwise equal across the three, the
    smoothed ATE below the causal one, both kernels against their plain
-   versions on the offline inputs; body sets streamed against one-shot;
+   versions on the offline inputs, the bank's forward-filter
+   instantiation (the smoother's, one launch a call) too, with its event
+   ms against its plain chain's; body sets streamed against one-shot;
 13. ``batched_track_from_blobs`` over 8 rigs with their own calibrations,
    every rig's rows bitwise equal to its own ``track_from_blobs`` run;
 14. the ``parallel/`` slice, every shard on the one card: [14a]
@@ -1125,8 +1128,13 @@ def device_ms(fn, kernel, runs=TIMING_RUNS):
 def kernel_times(frames, args, cands, num_objects):
     """Event-window ms (``cuda_ms``) and device ms (``device_ms``) of the
     two kernels' wrappers at the main path's shapes: detection on
-    ``frames``, the bank on ``cands`` at B = len(cands[0]) and at B = 1.
-    The profiler sessions come first, while the process is young."""
+    ``frames``, the bank on ``cands`` at B = len(cands[0]) and at B = 1,
+    and, in a checkout that has it, the bank's forward filter over
+    ``bank_case(OFFLINE_FRAMES)`` (M = 32), as the smoother runs it on a
+    recording.  The profiler sessions come first, while the process is
+    young."""
+    import torch
+
     from low_cost_mocap_tpu_torch.ops import detect_cuda, kalman, kalman_cuda
 
     st = kalman.init_state(num_objects, device=DEVICE)
@@ -1137,6 +1145,12 @@ def kernel_times(frames, args, cands, num_objects):
                  lambda: kalman_cuda.kalman_scan(st, *cands), "kalman_bank"),
              "kalman_bank B=1": (lambda: kalman_cuda.kalman_scan(st, *one),
                                  "kalman_bank")}
+    if hasattr(kalman_cuda, "forward_scan"):
+        rec = [torch.from_numpy(a).to(DEVICE)
+               for a in bank_case(OFFLINE_FRAMES)]
+        st2 = kalman.init_state(2, device=DEVICE)
+        calls[f"kalman_bank forward B={OFFLINE_FRAMES}"] = (
+            lambda: kalman_cuda.forward_scan(st2, *rec), "kalman_bank")
     dev = {name: device_ms(fn, kernel)
            for name, (fn, kernel) in calls.items()}
     return {name: {"ms": cuda_ms(fn), "device_ms": dev[name][0],
@@ -2838,9 +2852,13 @@ def phase_offline(rig, cfg, Rs, ts):
     timed("stream_recording", lambda: offline.stream_recording(
         frames, *cal, rig, cfg, dts=dts, block=OFFLINE_BLOCK,
         stats=stats)[0], 0, -(-T // OFFLINE_BLOCK))
+    f0 = kalman_cuda.forward_launches
+    # the causal bank and the smoother's forward filter: one launch each
     timed("process_recording, smooth", lambda: offline.process_recording(
         (blobs, valid), *cal, rig, cfg, dts=dts, chunk=OFFLINE_CHUNK,
-        smooth=True), 0, 1)
+        smooth=True), 0, 2)
+    check(kalman_cuda.forward_launches - f0 == 1, "[12] process_recording, "
+          f"smooth: {kalman_cuda.forward_launches - f0} forward launches")
     ref = runs["process_recording, host blobs"].tracked
     for name, res in runs.items():
         check(all(torch.equal(a, b) for a, b in zip(res.tracked, ref)),
@@ -2888,6 +2906,23 @@ def phase_offline(rig, cfg, Rs, ts):
           "[12] the long-sequence bank differs from the offline tracks")
     bank_long_ms = cuda_ms(lambda: kalman_cuda.kalman_scan(st, *case),
                            runs=3)
+    # the smoother's forward filter on the same inputs: one launch against
+    # its plain chain, op by op
+    noise = dict(process_noise=cfg.kalman_process_noise,
+                 meas_noise=cfg.kalman_measurement_noise)
+    f0 = kalman_cuda.forward_launches
+    fwd1 = kalman_cuda.forward_scan(st, *case, **noise)
+    check(kalman_cuda.forward_launches - f0 == 1, "[12] forward filter: "
+          f"{kalman_cuda.forward_launches - f0} launches for one call")
+    ev[0].record()
+    fwd2 = kalman.forward_filter(st, *case, **noise)
+    ev[1].record()
+    torch.cuda.synchronize()
+    fwd_plain = ev[0].elapsed_time(ev[1])
+    check(same_results(fwd1, fwd2), f"[12] kalman_bank forward B={T}: "
+          "outputs differ from the plain chain's")
+    fwd_ms = cuda_ms(lambda: kalman_cuda.forward_scan(st, *case, **noise),
+                     runs=3)
 
     # body sets, streamed against one-shot, on [10a]'s scene
     brig = dataclasses.replace(rig, body_markers=BODY_TMPL_A, max_bodies=2,
@@ -2945,7 +2980,9 @@ def phase_offline(rig, cfg, Rs, ts):
           f"{det_err}; kalman_bank B={T} == plain chain, max_abs_err "
           f"{bank_err}, {bank_long_ms:.4f} ms (plain chain "
           f"{bank_long_plain:.1f} ms, one call; bound {bank_long_bound:.3e} "
-          f"ms by {bank_long_by})")
+          f"ms by {bank_long_by}); its forward filter (the smoother's) "
+          f"bitwise equal to the plain chain, {fwd_ms:.4f} ms (plain chain "
+          f"{fwd_plain:.1f} ms, one call)")
     print(f"[12] body sets (I=3) over {BODY_STREAM_FRAMES} frames of the "
           f"body scene: one-shot (host detection included) {t_one:.2f} s, "
           f"stream_recording {t_stream:.2f} s, tracks, fits and body "
@@ -3917,12 +3954,13 @@ def phase_offline_graphs(data):
     cases = [
         ("process_recording, frames", one_shot(frames, T), T,
          -(-T // OFFLINE_CHUNK), 1),
+        # smooth: the causal bank and the forward filter, a launch each
         ("process_recording, host blobs, smooth",
-         one_shot((blobs, valid), T, smooth=True), T, 0, 1),
+         one_shot((blobs, valid), T, smooth=True), T, 0, 2),
         ("process_recording, body sets, smooth",
          lambda: offline.process_recording(
              b_blobs, *cal, brig, bcfg, dts=bd, chunk=OFFLINE_BLOCK,
-             body_sets=sets, smooth=True), len(bd), 0, 1),
+             body_sets=sets, smooth=True), len(bd), 0, 2),
         ("stream_recording", lambda: offline.stream_recording(
             frames, *cal, rig, cfg, dts=dts, block=OFFLINE_BLOCK)[0], T, 0,
          -(-T // OFFLINE_BLOCK)),

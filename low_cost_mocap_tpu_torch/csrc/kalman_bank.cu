@@ -9,6 +9,19 @@
 // R = r I); a long-gap re-seed; order-5 Butterworth on heading and
 // velocity.  State is committed only on frames with a detection.
 //
+// Two instantiations of one body.  The serving bank (kSmoothFwd = false,
+// lcm_kalman_bank) is the above, for the live Engine, batched serving,
+// the offline causal bank and streamed blocks.  The RTS smoother's forward
+// filter (kSmoothFwd = true, lcm_kalman_forward; kalman.update with
+// advance_on_miss, return_cov and report "post") also commits the
+// prediction of an initialised object on a step without a detection
+// (prev and the low-pass banks stay), and writes the committed x, P and
+// the initialised flag after every step, so that a whole recording's
+// forward pass is one launch.  The variant is a template parameter, not a
+// runtime flag: the serving instantiation compiles to the code it had
+// before the variant existed, and the live path's chain of dependent steps
+// keeps its registers and schedule.
+//
 // What bounds it on an H100.  Not bytes (a few KB per batch) and not
 // arithmetic (~2k flops per object per step): the step-to-step dependency
 // chain.  The TPU walked B as a sequential grid with the state in VMEM;
@@ -41,10 +54,15 @@
 //   step-to-step chain.  A candidate's valid flag is folded into its index
 //   (-1 when invalid).
 // - A step with no candidate for the object skips the update: the commit
-//   rule makes that step a no-op except for age.
+//   rule makes that step a no-op except for age (and, in the forward
+//   filter, the prediction).
+// - The forward filter's per-step outputs: lane i (0-8) stores x[i] and
+//   row i of P, lane 0 the flag; no later step reads them, so no store
+//   sits on the step-to-step chain.
 //
 // Numerics.  The operations and their order are those of the plain
-// PyTorch chain (low_cost_mocap_tpu_torch/ops/kalman.py:update), which
+// PyTorch chain (low_cost_mocap_tpu_torch/ops/kalman.py:update, with the
+// forward filter's options for kSmoothFwd), which
 // follows the JAX package: (x0 + dt*x3) + hdt2*x6; the same two-sided
 // F P F^T slice arithmetic; Kv = P[:,k] / (P[k,k] + r); the squared
 // distance as (dx*dx + dy*dy) + dz*dz.  Built with -fmad=false and without
@@ -88,6 +106,26 @@ __device__ __forceinline__ float div_rn(float a, float b) {
   return a / b;
 }
 
+// The forward filter's outputs of one step, at row t * O + o: x (9),
+// P (9, 9) and the initialised flag.  Lane i (0-8) stores x[i] and row i
+// of P.
+__device__ __forceinline__ void store_step(
+    float* __restrict__ xs, float* __restrict__ Ps,
+    unsigned char* __restrict__ inits, size_t row, const float (&x)[9],
+    const float (&Pr)[9], bool inited, int lane) {
+  if (lane < 9) {
+    float xv = x[0];
+#pragma unroll
+    for (int i = 1; i < 9; ++i)
+      if (lane == i) xv = x[i];
+    xs[row * 9 + lane] = xv;
+#pragma unroll
+    for (int j = 0; j < 9; ++j) Ps[(row * 9 + lane) * 9 + j] = Pr[j];
+  }
+  if (lane == 0) inits[row] = inited ? 1 : 0;
+}
+
+template <bool kSmoothFwd>
 __global__ void kalman_bank_kernel(
     const float* __restrict__ cand_pos,            // (B, M, 3)
     const float* __restrict__ cand_head,           // (B, M)
@@ -111,7 +149,11 @@ __global__ void kalman_bank_kernel(
     float* __restrict__ lh_out, float* __restrict__ lv_out,
     float* __restrict__ age_out,
     int B, int M, int O, int warps, float q, float r, float gap_reset_s,
-    int report_post) {
+    int report_post,
+    // the forward filter's per-step outputs (kSmoothFwd; unused else)
+    float* __restrict__ xs_out,                    // (B, O, 9)
+    float* __restrict__ Ps_out,                    // (B, O, 9, 9)
+    unsigned char* __restrict__ inits_out) {       // (B, O) bool
   extern __shared__ float smem[];
   const int tid = threadIdx.x, T = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -194,7 +236,8 @@ __global__ void kalman_bank_kernel(
       }
     }
     if (first < 0) {
-      // no detection: nothing is committed, the outputs are zero
+      // no detection: the outputs are zero; the serving bank commits
+      // nothing
       if (lane == 0) {
         po[0] = po[1] = po[2] = 0.0f;
         vo[0] = vo[1] = vo[2] = 0.0f;
@@ -202,10 +245,18 @@ __global__ void kalman_bank_kernel(
         valid_out[(size_t)t * O + o] = 0;
       }
       age = age + dt;
-      continue;
+      if constexpr (!kSmoothFwd) {
+        continue;
+      } else if (!inited) {
+        store_step(xs_out, Ps_out, inits_out, (size_t)t * O + o, x, Pr,
+                   inited, lane);
+        continue;
+      }
+      // the forward filter goes on to predict, and commits the prediction
     }
 
-    // lazy init from the first (lowest-slot) candidate
+    // lazy init from the first (lowest-slot) candidate (first >= 0 here
+    // whenever the object is not initialised)
     if (!inited) {
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
@@ -242,6 +293,16 @@ __global__ void kalman_bank_kernel(
                     : j < 6 ? fp[j] + dt * fp[j + 3]
                             : fp[j];
       Pr[j] = f + (prow == j ? q : 0.0f);
+    }
+    if constexpr (kSmoothFwd) {
+      if (first < 0) {
+        // a gap in the forward filter: x_pre and P_pre committed
+#pragma unroll
+        for (int i = 0; i < 9; ++i) x[i] = xp[i];
+        store_step(xs_out, Ps_out, inits_out, (size_t)t * O + o, x, Pr,
+                   inited, lane);
+        continue;
+      }
     }
 
     // associate: the nearest candidate by torch.argmin's rule, as two
@@ -347,6 +408,9 @@ __global__ void kalman_bank_kernel(
 #pragma unroll
     for (int i = 0; i < 9; ++i) x[i] = xq[i];
     age = 0.0f;
+    if constexpr (kSmoothFwd)
+      store_step(xs_out, Ps_out, inits_out, (size_t)t * O + o, x, Pr,
+                 inited, lane);
   }
 
 #undef LCM_FETCH
@@ -368,19 +432,20 @@ __global__ void kalman_bank_kernel(
   }
 }
 
-}  // namespace
-
-// ba_host: host memory, the (2, 6) float32 Butterworth b; a.
-// out: one buffer.  float32 pos (B, O, 3), vel (B, O, 3), heading (B, O),
-// x (O, 9), P (O, 9, 9), prev_pos (O, 3), lpf_heading (O, 5),
-// lpf_vel (O, 3, 5), age (O,); then bytes valid (B, O), initialized (O,).
-extern "C" int lcm_kalman_bank(
-    const void* cand_pos, const void* cand_head, const void* cand_index,
-    const void* cand_valid, const void* dts, const void* ba_host,
-    const void* x_in, const void* P_in, const void* init_in,
-    const void* prev_in, const void* lh_in, const void* lv_in,
-    const void* age_in, void* out, int B, int M, int O, float q, float r,
-    float gap_reset_s, int report_post, void* stream) {
+// Launches B steps of one instantiation.  ba_host: host memory, the
+// (2, 6) float32 Butterworth b; a.  out: one buffer.  float32 pos
+// (B, O, 3), vel (B, O, 3), heading (B, O), [forward: xs (B, O, 9),
+// Ps (B, O, 9, 9),] x (O, 9), P (O, 9, 9), prev_pos (O, 3),
+// lpf_heading (O, 5), lpf_vel (O, 3, 5), age (O,); then bytes valid
+// (B, O), [forward: initialised (B, O),] initialized (O,).
+template <bool kSmoothFwd>
+int launch(const void* cand_pos, const void* cand_head,
+           const void* cand_index, const void* cand_valid, const void* dts,
+           const void* ba_host, const void* x_in, const void* P_in,
+           const void* init_in, const void* prev_in, const void* lh_in,
+           const void* lv_in, const void* age_in, void* out, int B, int M,
+           int O, float q, float r, float gap_reset_s, int report_post,
+           void* stream) {
   Butter bw;
   const float* ba = (const float*)ba_host;
   for (int i = 0; i < 6; ++i) {
@@ -388,17 +453,21 @@ extern "C" int lcm_kalman_bank(
     bw.a[i] = ba[6 + i];
   }
   const size_t BO = (size_t)B * O;
+  const size_t fwd = kSmoothFwd ? BO : 0;   // per-step rows of the variant
   float* pos = (float*)out;
   float* vel = pos + BO * 3;
   float* head = vel + BO * 3;
-  float* x = head + BO;
+  float* xs = head + BO;
+  float* Ps = xs + fwd * 9;
+  float* x = Ps + fwd * 81;
   float* P = x + (size_t)O * 9;
   float* prev = P + (size_t)O * 81;
   float* lh = prev + (size_t)O * 3;
   float* lv = lh + (size_t)O * 5;
   float* age = lv + (size_t)O * 15;
   unsigned char* valid = (unsigned char*)(age + O);
-  unsigned char* init = valid + BO;
+  unsigned char* inits = valid + BO;
+  unsigned char* init = inits + fwd;
 
   const int warps = O < MAX_WARPS ? O : MAX_WARPS;
   int threads = 32 * warps > M ? 32 * warps : M;
@@ -408,17 +477,49 @@ extern "C" int lcm_kalman_bank(
   const size_t smem = 2 * (5 * (size_t)M + 1) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kalman_bank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kalman_bank_kernel<kSmoothFwd>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kalman_bank_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+  kalman_bank_kernel<kSmoothFwd><<<blocks, threads, smem,
+                                   (cudaStream_t)stream>>>(
       (const float*)cand_pos, (const float*)cand_head,
       (const int*)cand_index, (const unsigned char*)cand_valid,
       (const float*)dts, bw, (const float*)x_in, (const float*)P_in,
       (const unsigned char*)init_in, (const float*)prev_in,
       (const float*)lh_in, (const float*)lv_in, (const float*)age_in, pos,
       vel, head, valid, x, P, init, prev, lh, lv, age, B, M, O, warps, q, r,
-      gap_reset_s, report_post);
+      gap_reset_s, report_post, kSmoothFwd ? xs : nullptr,
+      kSmoothFwd ? Ps : nullptr, kSmoothFwd ? inits : nullptr);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The serving bank: B steps with report "pre" or "post".
+extern "C" int lcm_kalman_bank(
+    const void* cand_pos, const void* cand_head, const void* cand_index,
+    const void* cand_valid, const void* dts, const void* ba_host,
+    const void* x_in, const void* P_in, const void* init_in,
+    const void* prev_in, const void* lh_in, const void* lv_in,
+    const void* age_in, void* out, int B, int M, int O, float q, float r,
+    float gap_reset_s, int report_post, void* stream) {
+  return launch<false>(cand_pos, cand_head, cand_index, cand_valid, dts,
+                       ba_host, x_in, P_in, init_in, prev_in, lh_in, lv_in,
+                       age_in, out, B, M, O, q, r, gap_reset_s, report_post,
+                       stream);
+}
+
+// The RTS smoother's forward filter: B steps, the prediction committed
+// through gaps, report "post", the per-step x, P and initialised flag.
+extern "C" int lcm_kalman_forward(
+    const void* cand_pos, const void* cand_head, const void* cand_index,
+    const void* cand_valid, const void* dts, const void* ba_host,
+    const void* x_in, const void* P_in, const void* init_in,
+    const void* prev_in, const void* lh_in, const void* lv_in,
+    const void* age_in, void* out, int B, int M, int O, float q, float r,
+    float gap_reset_s, void* stream) {
+  return launch<true>(cand_pos, cand_head, cand_index, cand_valid, dts,
+                      ba_host, x_in, P_in, init_in, prev_in, lh_in, lv_in,
+                      age_in, out, B, M, O, q, r, gap_reset_s, 1, stream);
 }

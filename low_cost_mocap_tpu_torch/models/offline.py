@@ -15,8 +15,10 @@ path runs) and through the stateful trackers in time order:
   sequence in one launch (``kalman.update``'s semantics, as the JAX
   package's offline scan);
 - ``smooth=True`` adds the RTS smoother (``kalman.smooth_sequence``: its
-  forward pass with ``advance_on_miss`` runs the plain chain, which the
-  kernel does not have) and, with body sets, ``smooth_body_sequence``.
+  forward filter, ``advance_on_miss``, is the ``kalman_bank`` kernel's
+  forward instantiation over the whole sequence in one launch,
+  ``kalman_cuda.forward_scan``; its backward pass a loop) and, with body
+  sets, ``smooth_body_sequence``.
 
 ``stream_recording`` processes unbounded recordings in blocks with the
 tracker state carried across blocks and calls: a worker thread detects the
@@ -32,11 +34,13 @@ Both run as compiled steps (``runtime/compiled.py``; the JAX package's
 ``_compiled_run`` and ``_compiled_block``), cached by shape and never by
 the recording's length: the chunk's vision is one step of ``chunk`` frame
 sets (the last chunk zero-padded; its dead frame sets are dropped), each
-per-frame loop (the smoothers' forward and backward passes, the body
-trackers, the sign alignment) a ``ChunkedScan`` of ``chunk`` frames, and a
-streamed block one step with the trackers over its live frames (one for a
-full block, one for the partial last block).  The causal bank stays one
-kernel launch over T.  On the card each is a CUDA graph captured at its
+per-frame loop (the drone smoother's backward pass, the body smoother's
+passes, the body trackers, the sign alignment) a ``ChunkedScan`` of
+``chunk`` frames, and a streamed block one step with the trackers over its
+live frames (one for a full block, one for the partial last block).  The
+causal bank and the drone smoother's forward filter stay one kernel launch
+over T each; on the CPU the forward filter is a ``ChunkedScan`` of the
+plain chain.  On the card each is a CUDA graph captured at its
 first use, but for a streamed block, which is built lazy: its first call
 runs op by op and the capture comes at its second, so the partial last
 block that a call runs once costs what it costs op by op, and is captured
@@ -63,8 +67,8 @@ from low_cost_mocap_tpu_torch.config import EngineConfig, RigConfig
 from low_cost_mocap_tpu_torch.control import bindings
 from low_cost_mocap_tpu_torch.models import pipeline
 from low_cost_mocap_tpu_torch.ops import (body_tracker, correspond, detect,
-                                          detect_cuda, kalman, rigid,
-                                          rigid_general)
+                                          detect_cuda, kalman, kalman_cuda,
+                                          rigid, rigid_general)
 from low_cost_mocap_tpu_torch.runtime import compiled
 from low_cost_mocap_tpu_torch.utils import tree
 
@@ -271,6 +275,8 @@ def process_recording(frames_seq, Ps, K, dist, to_world_matrix,
     zero-padded), the smoothers' and the body trackers' loops are
     ``ChunkedScan``s of ``chunk`` frames, all cached by shape
     (``_VISION``, ``_SCANS``): a recording of any length replays them.
+    On the card the drone smoother's forward filter is one kernel launch
+    (``kalman_cuda.forward_scan``) instead of a loop.
     One offline call runs at a time in a process (``_LOCK``).
     """
     dev = Ps.device
@@ -324,7 +330,8 @@ def process_recording(frames_seq, Ps, K, dist, to_world_matrix,
                 kalman.init_state(rig.num_objects, device=dev), loc.pos,
                 loc.heading, loc.index, loc.valid, dts,
                 process_noise=cfg.kalman_process_noise,
-                meas_noise=cfg.kalman_measurement_noise, scan=scan)
+                meas_noise=cfg.kalman_measurement_noise, scan=scan,
+                forward=kalman_cuda.forward_scan)
         if body_sets:
             _, body_tracks = _track_bodies(
                 tuple(body_tracker.init_state(mi, device=dev)

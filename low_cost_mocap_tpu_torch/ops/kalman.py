@@ -7,17 +7,20 @@ smoothers ``rts_smooth`` (a backward loop) and ``rts_smooth_assoc`` (the
 same recursion as affine maps composed by a log-depth scan), with
 ``smooth_sequence`` running a forward pass and the smoother.  The
 smoothers take their loop runner (``scan``, ``utils.tree.scan`` by
-default), so the offline path can run each loop as a replayed graph.
+default), so the offline path can run each loop as a replayed graph, and
+``smooth_sequence`` takes its forward pass as a runner too
+(``forward_filter`` by default; the offline path passes
+``kalman_cuda.forward_scan``, one kernel launch on the card).
 
-``update`` on the serving options (``report`` "pre"/"post", no advance on
-a miss, no covariance output) is the plain PyTorch version of the bank
-kernel (``ops/kalman_cuda.py``, ``csrc/kalman_bank.cu``): the kernel
-performs the same float32 operations in the same order, so on the card the
-two agree bitwise.  The smoother's forward options (``advance_on_miss``,
-``return_cov``) run this chain only, as the JAX package's kernel has
-neither.  The squared association distance is written out as
-``(dx*dx + dy*dy) + dz*dz`` for that reason, instead of a reduction whose
-order the library chooses.
+``update`` is the plain PyTorch version of the bank kernel
+(``ops/kalman_cuda.py``, ``csrc/kalman_bank.cu``) on the serving options
+(``report`` "pre"/"post", no advance on a miss, no covariance output) and
+on the smoother's forward options (``advance_on_miss``, ``return_cov``,
+``report="post"``: ``forward_filter``), which the kernel runs as another
+instantiation: it performs the same float32 operations in the same order,
+so on the card the two agree bitwise.  The squared association distance is
+written out as ``(dx*dx + dy*dy) + dz*dz`` for that reason, instead of a
+reduction whose order the library chooses.
 
 Model: 9-state [pos, vel, acc] constant-acceleration filter, 6-dim
 [pos, vel] measurement (H = [I6 | 0], R = meas_noise I), Q = process_noise
@@ -352,20 +355,33 @@ def _forward_step(state, cand_pos, cand_heading, cand_index, cand_valid,
     return state, (out, state.initialized)
 
 
+def forward_filter(state: KalmanState, cand_pos_seq, cand_heading_seq,
+                   cand_index_seq, cand_valid_seq, dts, *, scan=tree.scan,
+                   **kw):
+    """The smoother's forward filter (``_forward_step``) over a recorded
+    sequence through the loop runner ``scan``, with ``update``'s noise
+    options.  Returns (the final state, None from a runner that returns no
+    carry; ((TrackedObjects, committed xs (T, O, 9), Ps (T, O, 9, 9)),
+    initialized (T, O)))."""
+    return scan(functools.partial(_forward_step, **kw), state, cand_pos_seq,
+                cand_heading_seq, cand_index_seq, cand_valid_seq, dts)
+
+
 def smooth_sequence(state: KalmanState, cand_pos_seq, cand_heading_seq,
                     cand_index_seq, cand_valid_seq, dts, *,
-                    process_noise: float = 1e-2, scan=tree.scan, **kw):
+                    process_noise: float = 1e-2, scan=tree.scan,
+                    forward=forward_filter, **kw):
     """Forward filter (``advance_on_miss``, ``report="post"``, covariances
     kept) and the RTS backward pass over a recorded sequence.  Returns
     (TrackedObjects (T, O, ...) of smoothed positions and velocities, the
     forward pass's filtered headings, and ``valid`` = the track is
     initialised — gap frames carry interpolated states; xs_smooth
     (T, O, 9)).  ``scan``: the loop runner of both passes
-    (``utils.tree.scan``'s signature)."""
-    _, ((tracked, xs, Ps), inited) = scan(
-        functools.partial(_forward_step, process_noise=process_noise, **kw),
+    (``utils.tree.scan``'s signature); ``forward``: the forward pass,
+    ``forward_filter``'s signature, which gets ``scan``."""
+    _, ((tracked, xs, Ps), inited) = forward(
         state, cand_pos_seq, cand_heading_seq, cand_index_seq,
-        cand_valid_seq, dts)
+        cand_valid_seq, dts, process_noise=process_noise, scan=scan, **kw)
     xs_s, _ = rts_smooth(xs, Ps, dts, process_noise=process_noise,
                          scan=scan)
     smoothed = TrackedObjects(

@@ -8,9 +8,15 @@ chained ``kalman.update`` steps, which are its plain version.  Per-frame
 tracking calls it with B = 1, so per-frame and batched serving share one
 bank.
 
-``kalman_scan`` takes the plain chain for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.  It converts nothing: inputs of
-another dtype or layout are refused.  ``launches`` counts the launches.
+``forward_scan`` runs the RTS smoother's forward filter (``update`` with
+``advance_on_miss``, ``return_cov`` and ``report="post"``) over a whole
+recording in one launch of the kernel's other instantiation; its plain
+version is ``kalman.forward_filter``.
+
+Both take the plain chain for tensors on the CPU; for CUDA tensors they
+launch the kernel or raise.  They convert nothing: inputs of another dtype
+or layout are refused.  ``launches`` counts the launches of both
+instantiations, ``forward_launches`` those of the forward filter.
 """
 
 from __future__ import annotations
@@ -22,9 +28,11 @@ import torch
 
 from low_cost_mocap_tpu_torch.ops import kalman, lowpass, native
 from low_cost_mocap_tpu_torch.ops.kalman import KalmanState, TrackedObjects
+from low_cost_mocap_tpu_torch.utils import tree
 
 NAME = "kalman_bank"
 launches = 0
+forward_launches = 0
 
 _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
 # dtypes of cand_pos, heading, index, valid, dts, then the KalmanState leaves
@@ -40,6 +48,8 @@ def _lib():
         P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.lcm_kalman_bank.argtypes = [P] * 14 + [I, I, I, Fl, Fl, Fl, I, P]
         lib.lcm_kalman_bank.restype = I
+        lib.lcm_kalman_forward.argtypes = [P] * 14 + [I, I, I, Fl, Fl, Fl, P]
+        lib.lcm_kalman_forward.restype = I
         lib._lcm_typed = True
     return lib
 
@@ -50,6 +60,70 @@ def _butter_host():
     launch passes them by value."""
     b, a = lowpass.butter_coeffs()
     return (ctypes.c_float * 12)(*b.tolist(), *a.tolist())
+
+
+def _check(what: str, ins) -> None:
+    """Refuse inputs the kernel does not take: ``ins`` are the five
+    candidate sequences and the state's leaves, all on one device, in the
+    shapes that cand_pos_seq (B, M, 3) and the state's x (O, 9) give, each
+    a contiguous tensor of its dtype."""
+    dev = ins[0].device
+    B, M, _ = ins[0].shape
+    O = ins[5].shape[0]
+    shapes = ((B, M, 3), (B, M), (B, M), (B, M), (B,), (O, 9), (O, 9, 9),
+              (O,), (O, 3), (O, 5), (O, 3, 5), (O,))
+    for t, shape, dtype in zip(ins, shapes, _DTYPES):
+        if t.device != dev:
+            raise ValueError(f"{what}: all tensors must be on one device")
+        if t.shape != shape:
+            raise ValueError(f"{what}: expected shape {shape}, "
+                             f"got {tuple(t.shape)}")
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{what}: expected a contiguous {dtype} "
+                             f"tensor, got {t.dtype}")
+
+
+def _launch(ins, *, forward: bool, process_noise: float, meas_noise: float,
+            gap_reset_s: float, report_post: bool = True):
+    """One launch over checked inputs.  Returns (new state, TrackedObjects
+    with (B, O, ...) leaves, the forward filter's per-step (x (B, O, 9),
+    P (B, O, 9, 9), initialized (B, O)) or None), all views of one
+    allocation."""
+    global launches, forward_launches
+    lib = _lib()
+    dev = ins[0].device
+    B, M, _ = ins[0].shape
+    O = ins[5].shape[0]
+    BO = B * O
+    steps = (3, 3, 1) + ((9, 81) if forward else ())   # floats a row
+    nf = sum(steps) * BO + O * sum(_STATE_FLOATS)
+    nb = (2 if forward else 1) * BO + O
+    out = torch.empty(4 * nf + nb, dtype=torch.uint8, device=dev)
+    args = (*(t.data_ptr() for t in ins[:5]), ctypes.addressof(_butter_host()),
+            *(t.data_ptr() for t in ins[5:]), out.data_ptr(), B, M, O,
+            process_noise, meas_noise, gap_reset_s)
+    with torch.cuda.device(dev):   # the C launcher uses the current device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        native.check(lib.lcm_kalman_forward(*args, stream) if forward else
+                     lib.lcm_kalman_bank(*args, report_post, stream), NAME)
+    launches += 1
+    forward_launches += forward
+    fbytes, bbytes = out.split([4 * nf, nb])
+    per_step = fbytes.view(_F32).split(
+        [n * BO for n in steps] + [O * n for n in _STATE_FLOATS])
+    pos, vel, heading = per_step[:3]
+    x, P, prev, lh, lv, age = per_step[len(steps):]
+    flags = bbytes.view(_BOOL).split([BO] * (2 if forward else 1) + [O])
+    new = KalmanState(x.view(O, 9), P.view(O, 9, 9), flags[-1],
+                      prev.view(O, 3), lh.view(O, 5), lv.view(O, 3, 5), age)
+    tracked = TrackedObjects(pos=pos.view(B, O, 3), vel=vel.view(B, O, 3),
+                             heading=heading.view(B, O),
+                             valid=flags[0].view(B, O))
+    if not forward:
+        return new, tracked, None
+    xs, Ps = per_step[3:5]
+    return new, tracked, (xs.view(B, O, 9), Ps.view(B, O, 9, 9),
+                          flags[1].view(B, O))
 
 
 def kalman_scan(state: KalmanState, cand_pos_seq, cand_heading_seq,
@@ -64,49 +138,43 @@ def kalman_scan(state: KalmanState, cand_pos_seq, cand_heading_seq,
     Returns (new_state, TrackedObjects with (B, O, ...) leaves); on the
     card all of them are views of one allocation.
     """
-    global launches
     kw = dict(process_noise=process_noise, meas_noise=meas_noise,
-              gap_reset_s=gap_reset_s, report=report)
+              gap_reset_s=gap_reset_s)
     if report not in ("pre", "post"):
         raise ValueError(f"report must be 'pre' or 'post', got {report!r}")
     if not native.on_card(cand_pos_seq):
         return kalman.update_scan(state, cand_pos_seq, cand_heading_seq,
-                                  cand_index_seq, cand_valid_seq, dts, **kw)
-    dev = cand_pos_seq.device
-    B, M, _ = cand_pos_seq.shape
-    O = state.x.shape[0]
+                                  cand_index_seq, cand_valid_seq, dts,
+                                  report=report, **kw)
     ins = (cand_pos_seq, cand_heading_seq, cand_index_seq, cand_valid_seq,
            dts, *state)
-    shapes = ((B, M, 3), (B, M), (B, M), (B, M), (B,), (O, 9), (O, 9, 9),
-              (O,), (O, 3), (O, 5), (O, 3, 5), (O,))
-    for t, shape, dtype in zip(ins, shapes, _DTYPES):
-        if t.device != dev:
-            raise ValueError("kalman_scan: all tensors must be on one device")
-        if t.shape != shape:
-            raise ValueError(f"kalman_scan: expected shape {shape}, "
-                             f"got {tuple(t.shape)}")
-        if t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"kalman_scan: expected a contiguous {dtype} "
-                             f"tensor, got {t.dtype}")
-    lib = _lib()
-    BO = B * O
-    nf = 7 * BO + O * sum(_STATE_FLOATS)
-    out = torch.empty(4 * nf + BO + O, dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):   # the C launcher uses the current device
-        native.check(lib.lcm_kalman_bank(
-            *(t.data_ptr() for t in ins[:5]),
-            ctypes.addressof(_butter_host()),
-            *(t.data_ptr() for t in ins[5:]), out.data_ptr(),
-            B, M, O, process_noise, meas_noise, gap_reset_s,
-            report == "post", torch.cuda.current_stream(dev).cuda_stream),
-            NAME)
-    launches += 1
-    fbytes, bbytes = out.split([4 * nf, BO + O])
-    pos, vel, heading, x, P, prev, lh, lv, age = fbytes.view(_F32).split(
-        [3 * BO, 3 * BO, BO] + [O * n for n in _STATE_FLOATS])
-    valid, init = bbytes.view(_BOOL).split([BO, O])
-    new = KalmanState(x.view(O, 9), P.view(O, 9, 9), init, prev.view(O, 3),
-                      lh.view(O, 5), lv.view(O, 3, 5), age)
-    return new, TrackedObjects(pos=pos.view(B, O, 3), vel=vel.view(B, O, 3),
-                               heading=heading.view(B, O),
-                               valid=valid.view(B, O))
+    _check("kalman_scan", ins)
+    return _launch(ins, forward=False, report_post=report == "post",
+                   **kw)[:2]
+
+
+def forward_scan(state: KalmanState, cand_pos_seq, cand_heading_seq,
+                 cand_index_seq, cand_valid_seq, dts, *,
+                 process_noise: float = 1e-2, meas_noise: float = 1.0,
+                 gap_reset_s: float = 0.5, scan=tree.scan):
+    """The RTS smoother's forward filter over T frames: a forward runner
+    for ``kalman.smooth_sequence``, ``kalman.forward_filter``'s signature.
+
+    Inputs as ``kalman_scan``'s (B = T), checked on either device.
+    Returns (final state, ((TrackedObjects, xs (T, O, 9), Ps (T, O, 9, 9)),
+    initialized (T, O))): the committed state after every frame.  On the
+    card one launch, all of them views of one allocation; on the CPU
+    ``kalman.forward_filter`` through ``scan`` (whose final state is None
+    from a runner that returns no carry).
+    """
+    ins = (cand_pos_seq, cand_heading_seq, cand_index_seq, cand_valid_seq,
+           dts, *state)
+    _check("forward_scan", ins)
+    kw = dict(process_noise=process_noise, meas_noise=meas_noise,
+              gap_reset_s=gap_reset_s)
+    if not native.on_card(cand_pos_seq):
+        return kalman.forward_filter(state, cand_pos_seq, cand_heading_seq,
+                                     cand_index_seq, cand_valid_seq, dts,
+                                     scan=scan, **kw)
+    new, tracked, (xs, Ps, inited) = _launch(ins, forward=True, **kw)
+    return new, ((tracked, xs, Ps), inited)

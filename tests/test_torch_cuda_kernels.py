@@ -4,7 +4,10 @@ not a whole number of propagation tiles, ``cc_iters`` from 0 to more than
 one pass of the kernel holds, an all-lit frame where no tile is skipped,
 one to sixteen blob slots, banks of one object up to more objects than a
 block holds, candidate counts that do not fill a warp or spill past one,
-ties across lanes, and NaN and infinite candidate distances.  Beside the
+ties across lanes, and NaN and infinite candidate distances; the bank's
+forward-filter instantiation (the RTS smoother's, one launch a recording)
+through misses before the first detection, short gaps and gaps past
+``gap_reset_s``, alone and inside ``process_recording``.  Beside the
 kernels, the two stages of the body rig that run on the card around them:
 the body stage (6-DoF fits and the body tracker) and the blur + sharpen
 convolution, each held to the port on the CPU.
@@ -31,6 +34,8 @@ import torch
 
 from low_cost_mocap_tpu_torch.ops import detect, detect_cuda, kalman
 from low_cost_mocap_tpu_torch.ops import kalman_cuda
+from low_cost_mocap_tpu_torch.utils import tree
+from test_torch_kalman_forward import forward_case   # tests/ is on the path
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -273,6 +278,105 @@ def test_bank_kernel_over_a_long_recording(dev):
     1,500 from the carried state, against the plain chain."""
     case = [torch.from_numpy(a).to(dev) for a in _bank_case(8, 1500, 32, 2)]
     _check_bank(dev, case, 2)
+
+
+@pytest.mark.parametrize("O", [1, 2, 9])
+@pytest.mark.parametrize("M", [32, 128])
+@pytest.mark.parametrize("B", [1, 128, 1500])
+def test_forward_kernel_matches_plain_chain(dev, B, M, O):
+    """The smoother's forward filter in one launch (O = 9: two blocks)
+    against the plain chain (``kalman.forward_filter``): the tracks, the
+    per-step x, P and initialised flags and the final state bitwise, then
+    a second batch from the first's end."""
+    case = [torch.from_numpy(a).to(dev)
+            for a in forward_case(B + M + O, B, M, O)]
+    st = kalman.init_state(O, device=dev)
+    for _ in range(2):
+        n0, f0 = kalman_cuda.launches, kalman_cuda.forward_launches
+        got = kalman_cuda.forward_scan(st, *case)
+        assert (kalman_cuda.launches - n0, kalman_cuda.forward_launches - f0) \
+            == (1, 1)
+        want = kalman.forward_filter(st, *case)
+        torch.cuda.synchronize()
+        _assert_same(tree.leaves(got), tree.leaves(want))
+        st = got[0]
+
+
+def _two_drones(T, K):
+    """Host blobs (T, 4, K, 2), valid (T, 4, K) of two drones circling on
+    the 4-camera ring: drone 1 out of sight for 100 frame sets (past
+    ``gap_reset_s`` at 150 frames/s), drone 0 for 5."""
+    from low_cost_mocap_tpu_torch.utils import synthetic as syn
+
+    Rs, ts, rig = syn.ring_rig(num_cameras=4)
+    blobs = np.zeros((T, 4, K, 2), np.float32)
+    valid = np.zeros((T, 4, K), bool)
+    for t in range(T):
+        a = t / 150
+        drones = [syn.drone_markers(np.array(
+            [0.3 * np.cos(a), 0.3 * np.sin(a), 0.6], np.float32), 0.0, rig),
+            syn.drone_markers(np.array(
+                [-0.3 * np.cos(a), 0.2, 0.5 + 0.1 * np.sin(a)], np.float32),
+                np.pi, rig)]
+        if 400 <= t < 500:
+            drones = drones[:1]
+        elif 900 <= t < 905:
+            drones = drones[1:]
+        pts, mask = syn.observe(np.concatenate(drones), Rs, ts, rig)
+        for c in range(4):
+            vis = np.flatnonzero(mask[:, c])[:K]
+            blobs[t, c, :len(vis)] = pts[vis, c]
+            valid[t, c, :len(vis)] = True
+    return (blobs, valid), Rs, ts, rig
+
+
+@pytest.mark.parametrize("chunk", [8, 32, 100])
+def test_process_recording_smooths_with_one_forward_launch(dev, chunk,
+                                                           monkeypatch):
+    """``process_recording(smooth=True)`` over 1,500 frame sets: one launch
+    of the forward filter whatever the chunk, no ``_forward_step`` step
+    replayed, and smoothed tracks bitwise those of the same call with the
+    plain forward chain (a ``ChunkedScan`` of graphs) on the card."""
+    from low_cost_mocap_tpu_torch.config import EngineConfig
+    from low_cost_mocap_tpu_torch.models import offline
+    from low_cost_mocap_tpu_torch.ops import camera
+    from low_cost_mocap_tpu_torch.runtime import compiled
+
+    cfg = EngineConfig()
+    T = 1500
+    rec, Rs, ts, rig = _two_drones(T, cfg.max_blobs)
+    K = torch.as_tensor(rig.K_stack(), device=dev)
+    cal = (camera.projection_matrix(K, torch.as_tensor(Rs, device=dev),
+                                    torch.as_tensor(ts, device=dev)),
+           K, torch.as_tensor(rig.dist_stack(), device=dev),
+           torch.eye(4, device=dev))
+    dts = np.full((T,), 1 / 150, np.float32)
+    calls = []
+    run = compiled.CompiledStep.__call__
+
+    def counting(self, *a):
+        calls.append(self.name)
+        return run(self, *a)
+
+    monkeypatch.setattr(compiled.CompiledStep, "__call__", counting)
+
+    def call():
+        return offline.process_recording(rec, *cal, rig, cfg, dts=dts,
+                                         chunk=chunk, smooth=True)
+
+    f0 = kalman_cuda.forward_launches
+    got = call()
+    assert kalman_cuda.forward_launches - f0 == 1
+    assert "_forward_step" not in calls and "_rts_step" in calls
+    monkeypatch.setattr(kalman_cuda, "forward_scan", kalman.forward_filter)
+    want = call()
+    torch.cuda.synchronize()
+    assert kalman_cuda.forward_launches - f0 == 1
+    assert calls.count("_forward_step") == -(-T // chunk)
+    _assert_same(tree.leaves(got.smoothed), tree.leaves(want.smoothed))
+    # the long gap is bridged by the smoother
+    assert not bool(got.tracked.valid[450].all())
+    assert bool(got.smoothed.valid[450].all())
 
 
 def test_detection_inside_process_recording_matches_plain(dev):
