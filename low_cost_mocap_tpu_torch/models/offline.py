@@ -10,7 +10,9 @@ path runs) and through the stateful trackers in time order:
   kernel treats independently (dense uint8, 1-bit packed, or sparse
   lit-pixel frames; the last two unpacked or scattered on the device
   first); recordings detected on the host skip it (``frames_seq=(blobs,
-  valid)``);
+  valid)``); a recording in host memory goes up a chunk at a time
+  through a page-locked, double-buffered ring on a copy stream
+  (``_Staging``), each chunk's upload under the previous chunk's vision;
 - the causal drone tracking is the ``kalman_bank`` kernel over the whole
   sequence in one launch (``kalman.update``'s semantics, as the JAX
   package's offline scan);
@@ -75,9 +77,13 @@ from low_cost_mocap_tpu_torch.utils import tree
 # the compiled steps of the offline paths by shape, a cache for each kind
 # (as JAX keeps an lru_cache(maxsize=16) a compiled function): the chunk
 # vision, the streamed block and the chunked loops; _LOCK lets one call
-# at a time use them and their buffers
+# at a time use them and their buffers, and the staging rings (_Staging)
+# by the shapes of the payload they carry
 _VISION, _BLOCKS, _SCANS = (compiled.GraphCache() for _ in range(3))
+_STAGING = compiled.GraphCache()
 _LOCK = threading.RLock()
+
+staged_chunks = 0   # chunks uploaded through a staging ring
 
 
 def cached_steps() -> list:
@@ -88,9 +94,9 @@ def cached_steps() -> list:
 
 
 def clear_cache() -> None:
-    """Drop every cached step and its graph."""
+    """Drop every cached step and its graph, and the staging rings."""
     with _LOCK:
-        for c in (_VISION, _BLOCKS, _SCANS):
+        for c in (_VISION, _BLOCKS, _SCANS, _STAGING):
             c.clear()
 
 
@@ -246,6 +252,62 @@ def _load(buf, x, lo: int, hi: int) -> None:
         buf[n:].zero_()
 
 
+class _Staging:
+    """How a recording on the host reaches a vision step on the card, a
+    chunk at a time: for each leaf of the step's payload two page-locked
+    host slots (``compiled._HostRing``) and two landing slots on the card,
+    and the copy stream between them (``compiled.copy_stream``).
+
+    ``upload`` writes chunk k into a free host slot and, on the copy
+    stream, copies it into landing slot k % 2 once the step has taken
+    chunk k - 2 out of that slot; ``run`` makes the current stream wait for
+    the upload and calls the step on the landing slot (the step copies it
+    into its own buffer, one copy on the card).  So chunk k + 1 goes up
+    while chunk k's graph runs, where a copy from pageable memory would
+    hold the host and wait for the graph to stop reading the buffer."""
+
+    def __init__(self, payload):
+        dev = tree.leaves(payload)[0].device
+        self.device = dev
+        self.host = [compiled._HostRing(2, t.shape, dev, t.dtype)
+                     for t in tree.leaves(payload)]
+        self.landing = [tree.tree_map(torch.empty_like, payload)
+                        for _ in range(2)]
+        for t in tree.leaves(self.landing):
+            # written on the copy stream: freed only after what it queued
+            t.record_stream(compiled.copy_stream(dev))
+        self.uploaded = [torch.cuda.Event() for _ in range(2)]
+        self.taken = [torch.cuda.Event() for _ in range(2)]
+
+    def upload(self, k: int, seqs, lo: int, hi: int) -> None:
+        """Frames lo..hi of each array of ``seqs`` (chunk k) on their way
+        into landing slot k % 2, zeros after them."""
+        global staged_chunks
+        s = k % 2
+        slots = [ring.acquire() for ring in self.host]
+        for ring, i, a in zip(self.host, slots, seqs):
+            _load(ring.bufs[i], a, lo, hi)
+        stream = compiled.copy_stream(self.device)
+        with torch.cuda.stream(stream):
+            stream.wait_event(self.taken[s])
+            for ring, i, dst in zip(self.host, slots,
+                                    tree.leaves(self.landing[s])):
+                dst.copy_(ring.bufs[i], non_blocking=True)
+                ring.fence(i)
+            self.uploaded[s].record(stream)
+        staged_chunks += 1
+
+    def run(self, step, k: int):
+        """``step`` over chunk k once its upload is done; landing slot
+        k % 2 is free again after it."""
+        s = k % 2
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_event(self.uploaded[s])
+        res = step((), self.landing[s], *step.args[1:])
+        self.taken[s].record(cur)
+        return res
+
+
 def _into(dst, out, lo: int, n: int) -> None:
     """Copy the first ``n`` rows of each leaf of ``out`` into rows
     lo..lo+n of the like leaf of ``dst``."""
@@ -272,7 +334,10 @@ def process_recording(frames_seq, Ps, K, dist, to_world_matrix,
     ``smooth``: also the RTS-smoothed drone tracks (and body tracks).
 
     The vision is one compiled step of ``chunk`` frame sets (the last chunk
-    zero-padded), the smoothers' and the body trackers' loops are
+    zero-padded); on the card a recording on the host (arrays or CPU
+    tensors) goes up to it through a staging ring (``_Staging``), chunk
+    k + 1 while chunk k runs, and one already on the card is copied into
+    its buffer directly.  The smoothers' and the body trackers' loops are
     ``ChunkedScan``s of ``chunk`` frames, all cached by shape
     (``_VISION``, ``_SCANS``): a recording of any length replays them.
     On the card the drone smoother's forward filter is one kernel launch
@@ -309,16 +374,29 @@ def process_recording(frames_seq, Ps, K, dist, to_world_matrix,
         step = _VISION.get(key, build)
         bufs = tree.leaves(step.args[0])
         compiled.assign(step.args[1:], cal)
+        ring = None
+        if dev.type == "cuda" and not any(
+                isinstance(a, torch.Tensor) and a.device.type != "cpu"
+                for a in seqs):
+            ring = _STAGING.get(_spec(bufs), lambda: _Staging(step.args[0]))
+        chunks = [(lo, min(lo + chunk, T)) for lo in range(0, T, chunk)]
         res = None
-        for lo in range(0, T, chunk):
-            hi = min(lo + chunk, T)
-            for buf, a in zip(bufs, seqs):
-                _load(buf, a, lo, hi)
-            _, out = step((), *step.args)
+        for k, (lo, hi) in enumerate(chunks):
+            if ring is None:
+                for buf, a in zip(bufs, seqs):
+                    _load(buf, a, lo, hi)
+                _, out = step((), *step.args)
+            else:
+                if k == 0:
+                    ring.upload(0, seqs, lo, hi)
+                _, out = ring.run(step, k)
             if res is None:
                 res = tree.tree_map(
                     lambda y: y.new_empty((T,) + tuple(y.shape[1:])), out)
             _into(res, out, lo, hi - lo)
+            if ring is not None and k + 1 < len(chunks):
+                # the host writes chunk k + 1 while the card runs chunk k
+                ring.upload(k + 1, seqs, *chunks[k + 1])
         (pts_w, pvalid, perr, loc), bodies = res
         _, tracked = pipeline._bank(
             kalman.init_state(rig.num_objects, device=dev), loc, dts,

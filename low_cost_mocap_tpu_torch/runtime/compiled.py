@@ -51,6 +51,10 @@ call is its warm-up, and the capture waits for the second call, so a step
 called once costs no more than the step op by op.  A lazy loop of
 ``ChunkedScan.run_until`` runs its whole first run so (a solver's first
 call at a new shape), and captures at the next run.
+
+``_HostRing`` is a ring of page-locked host buffers with an event a slot,
+through which the Engine's ingest and readback and offline processing's
+uploads pass; ``copy_stream`` is the stream those uploads run on.
 """
 
 from __future__ import annotations
@@ -123,13 +127,65 @@ def side_stream(dev: torch.device):
     ``dev``: one a device and thread, so that the blocks the allocator
     caches for it serve every step's warm-up (a new stream starts with
     none: a step run op by op on it allocates its whole working set)."""
+    return _thread_stream(dev, "side")
+
+
+def copy_stream(dev: torch.device):
+    """The stream on which this thread uploads host data for the steps of
+    ``dev`` (``models/offline.py``'s staging ring): one a device and
+    thread, not ``side_stream``, so that an upload overlaps the replays on
+    the current stream and never enters a step's warm-up or capture."""
+    return _thread_stream(dev, "copy")
+
+
+def _thread_stream(dev: torch.device, kind: str):
     streams = getattr(_local, "streams", None)
     if streams is None:
         streams = _local.streams = {}
     index = torch.cuda.current_device() if dev.index is None else dev.index
-    if index not in streams:
-        streams[index] = torch.cuda.Stream(torch.device("cuda", index))
-    return streams[index]
+    if (kind, index) not in streams:
+        streams[kind, index] = torch.cuda.Stream(torch.device("cuda", index))
+    return streams[kind, index]
+
+
+class _HostRing:
+    """A ring of host buffers for copies between the host and the card.
+
+    On a CUDA engine the buffers are page-locked (a ``non_blocking`` copy
+    from or to pageable memory is silently synchronous), and each slot has
+    an event recorded after the last copy that used it.  ``acquire`` waits
+    for that event before the host touches the buffer again: a pinned
+    buffer rewritten under an upload still in flight corrupts that frame
+    without any error.  On a CPU engine the buffers are plain tensors and
+    every copy completes at once."""
+
+    def __init__(self, n: int, shape, device: torch.device,
+                 dtype=torch.float32):
+        self.cuda = device.type == "cuda"
+        self.device = device
+        self.bufs = [torch.zeros(shape, dtype=dtype, pin_memory=self.cuda)
+                     for _ in range(n)]
+        if self.cuda and not all(b.is_pinned() for b in self.bufs):
+            raise RuntimeError("host buffers are not page-locked")
+        self.events = ([torch.cuda.Event() for _ in range(n)]
+                       if self.cuda else None)
+        self._next = 0
+
+    def acquire(self) -> int:
+        """The next slot, once the copy that last used it has completed."""
+        i = self._next
+        self._next = (i + 1) % len(self.bufs)
+        self.wait(i)
+        return i
+
+    def fence(self, i: int) -> None:
+        """Record slot i's event after the copy just enqueued."""
+        if self.cuda:
+            self.events[i].record(torch.cuda.current_stream(self.device))
+
+    def wait(self, i: int) -> None:
+        if self.cuda:
+            self.events[i].synchronize()
 
 
 def _counts() -> list:

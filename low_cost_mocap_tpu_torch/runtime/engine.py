@@ -113,49 +113,10 @@ from low_cost_mocap_tpu_torch.ops.rotations import quat_to_matrix_np
 from low_cost_mocap_tpu_torch.parallel.dist_pipeline import (
     detect_gather, detect_shard, dist_frame_step, dist_scan_frame_step)
 from low_cost_mocap_tpu_torch.runtime import compiled
+from low_cost_mocap_tpu_torch.runtime.compiled import _HostRing
 from low_cost_mocap_tpu_torch.runtime.health import CameraHealthMonitor
 from low_cost_mocap_tpu_torch.utils import artifacts, profiling
 from low_cost_mocap_tpu_torch.utils.recordings import save_recording
-
-
-class _HostRing:
-    """A ring of host buffers for copies between the host and the card.
-
-    On a CUDA engine the buffers are page-locked (a ``non_blocking`` copy
-    from or to pageable memory is silently synchronous), and each slot has
-    an event recorded after the last copy that used it.  ``acquire`` waits
-    for that event before the host touches the buffer again: a pinned
-    buffer rewritten under an upload still in flight corrupts that frame
-    without any error.  On a CPU engine the buffers are plain tensors and
-    every copy completes at once."""
-
-    def __init__(self, n: int, shape, device: torch.device,
-                 dtype=torch.float32):
-        self.cuda = device.type == "cuda"
-        self.device = device
-        self.bufs = [torch.zeros(shape, dtype=dtype, pin_memory=self.cuda)
-                     for _ in range(n)]
-        if self.cuda and not all(b.is_pinned() for b in self.bufs):
-            raise RuntimeError("host buffers are not page-locked")
-        self.events = ([torch.cuda.Event() for _ in range(n)]
-                       if self.cuda else None)
-        self._next = 0
-
-    def acquire(self) -> int:
-        """The next slot, once the copy that last used it has completed."""
-        i = self._next
-        self._next = (i + 1) % len(self.bufs)
-        self.wait(i)
-        return i
-
-    def fence(self, i: int) -> None:
-        """Record slot i's event after the copy just enqueued."""
-        if self.cuda:
-            self.events[i].record(torch.cuda.current_stream(self.device))
-
-    def wait(self, i: int) -> None:
-        if self.cuda:
-            self.events[i].synchronize()
 
 
 class _Readback(NamedTuple):

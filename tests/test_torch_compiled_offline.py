@@ -235,6 +235,18 @@ def test_a_fresh_length_captures_no_new_graph(rec, monkeypatch):
     assert calls.count("_rts_step") == 3
 
 
+def test_host_frames_on_the_cpu_take_no_staging_ring(rec):
+    """On the CPU uint8 frames in host memory load straight into the
+    vision step's buffer: no chunk goes through a staging ring (the card's
+    page-locked uploads, ``offline._Staging``)."""
+    n0 = offline.staged_chunks
+    got = offline.process_recording(rec["frames"], *rec["cal"], rec["rig"],
+                                    rec["cfg"], chunk=CHUNK)
+    assert offline.staged_chunks == n0
+    assert got.object_points.shape[0] == T
+    assert len(offline._STAGING) == 0
+
+
 def test_the_cache_keeps_the_most_recent_steps():
     cache = compiled.GraphCache(size=3)
     built = []

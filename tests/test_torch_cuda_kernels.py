@@ -423,6 +423,80 @@ def test_detection_inside_process_recording_matches_plain(dev):
     _assert_same(got.tracked, want.tracked)
 
 
+def _moving_frames(T, seed, rig, Rs, ts):
+    """(T, 4, H, W) uint8 frame sets of two drones circling fast enough
+    that every frame set differs from the last (a seed-drawn phase)."""
+    from low_cost_mocap_tpu_torch.utils import synthetic as syn
+
+    phase = np.random.default_rng(seed).uniform(0, 2 * np.pi)
+    frames = []
+    for t in range(T):
+        a = phase + 0.07 * t
+        X = np.concatenate([
+            syn.drone_markers(np.array([0.3 * np.cos(a), 0.3 * np.sin(a),
+                                        0.6], np.float32), 0.0, rig),
+            syn.drone_markers(np.array([-0.3 * np.cos(a), 0.2,
+                                        0.5 + 0.1 * np.sin(a)], np.float32),
+                              np.pi, rig)])
+        pts, mask = syn.observe(X, Rs, ts, rig)
+        frames.append(syn.render_frames(pts, mask, rig.image_size, sigma=0.8))
+    return (np.stack(frames) * 255).astype(np.uint8)
+
+
+def _bitwise(got, want):
+    """Every leaf of two results equal bit for bit."""
+    got, want = tree.leaves(got), tree.leaves(want)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(g.contiguous().view(torch.uint8),
+                           w.contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize("T,chunk,calls", [(77, 32, 1), (61, 4, 2)])
+def test_staged_upload_matches_the_direct_path(dev, T, chunk, calls):
+    """``process_recording(smooth=True)`` on uint8 frames in host memory
+    goes up through the staging ring (``offline.staged_chunks`` rises by
+    ceil(T / chunk) a call), on the same frames already on the card takes
+    the direct copy (0), and every output is bitwise the same.  With
+    ``chunk`` 4 many chunks are in flight and the host runs ahead; two
+    calls back to back on two recordings, neither read before the other
+    starts, show a slot rewritten under its upload or read stale."""
+    from low_cost_mocap_tpu_torch.config import EngineConfig
+    from low_cost_mocap_tpu_torch.models import offline
+    from low_cost_mocap_tpu_torch.ops import camera
+    from low_cost_mocap_tpu_torch.utils import synthetic as syn
+
+    Rs, ts, rig = syn.ring_rig(num_cameras=4)
+    cfg = EngineConfig()
+    K = torch.as_tensor(rig.K_stack(), device=dev)
+    cal = (camera.projection_matrix(K, torch.as_tensor(Rs, device=dev),
+                                    torch.as_tensor(ts, device=dev)),
+           K, torch.as_tensor(rig.dist_stack(), device=dev),
+           torch.eye(4, device=dev))
+    recs = [_moving_frames(T, 11 + i, rig, Rs, ts) for i in range(calls)]
+
+    def call(frames):
+        return offline.process_recording(frames, *cal, rig, cfg,
+                                         chunk=chunk, smooth=True)
+
+    staged = []
+    for frames in recs:
+        n0 = offline.staged_chunks
+        staged.append(call(frames))
+        assert offline.staged_chunks - n0 == -(-T // chunk)
+    for frames, got in zip(recs, staged):
+        n0 = offline.staged_chunks
+        want = call(torch.from_numpy(frames).to(dev))
+        assert offline.staged_chunks == n0
+        torch.cuda.synchronize()
+        _bitwise(got, want)
+    if calls > 1:
+        # the recordings differ, so equal results are not a stale slot's
+        assert not torch.equal(staged[0].object_points,
+                               staged[1].object_points)
+
+
 def test_two_traces_in_a_row_both_list_the_kernels(dev, tmp_path):
     """Two ``device_trace`` sessions one after the other (after a session of
     the main thread), while another thread launches the bank kernel under
