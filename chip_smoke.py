@@ -1104,8 +1104,7 @@ def device_ms(fn, kernel, runs=TIMING_RUNS):
     session without a record of each of those launches fails.  The
     profiler keeps fewer of a short session's kernel records the older the
     process is, threads or no threads (an idle process keeps none after
-    about 80 s: ``utils/profiler_probe.py drift``), so ``kernel_times``
-    runs in a process of its own."""
+    about 80 s), so ``kernel_times`` runs in a process of its own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 

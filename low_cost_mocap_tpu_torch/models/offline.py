@@ -114,12 +114,6 @@ class SequenceResult(NamedTuple):
     #                               with body sets
 
 
-def _resolve_sets(body_template, max_bodies, body_sets):
-    if body_sets is None and body_template is not None:
-        body_sets = ((body_template, int(max_bodies)),)
-    return tuple(body_sets) if body_sets else ()
-
-
 def detect_recording_host(frames_u8_seq, threshold: float, max_blobs: int,
                           weighted: bool = False):
     """Native host detection over a whole (T, C, H, W) uint8 recording in
@@ -255,7 +249,7 @@ def _load(buf, x, lo: int, hi: int) -> None:
 class _Staging:
     """How a recording on the host reaches a vision step on the card, a
     chunk at a time: for each leaf of the step's payload two page-locked
-    host slots (``compiled._HostRing``) and two landing slots on the card,
+    host slots (``compiled.HostRing``) and two landing slots on the card,
     and the copy stream between them (``compiled.copy_stream``).
 
     ``upload`` writes chunk k into a free host slot and, on the copy
@@ -269,7 +263,7 @@ class _Staging:
     def __init__(self, payload):
         dev = tree.leaves(payload)[0].device
         self.device = dev
-        self.host = [compiled._HostRing(2, t.shape, dev, t.dtype)
+        self.host = [compiled.HostRing(2, t.shape, dev, t.dtype)
                      for t in tree.leaves(payload)]
         self.landing = [tree.tree_map(torch.empty_like, payload)
                         for _ in range(2)]
@@ -345,7 +339,7 @@ def process_recording(frames_seq, Ps, K, dist, to_world_matrix,
     One offline call runs at a time in a process (``_LOCK``).
     """
     dev = Ps.device
-    body_sets = _resolve_sets(body_template, max_bodies, body_sets)
+    body_sets = pipeline._resolve_sets(body_template, max_bodies, body_sets)
     from_blobs = isinstance(frames_seq, tuple)
     T = len(frames_seq[0]) if from_blobs else len(frames_seq)
     dts = (torch.full((T,), 1.0 / cfg.target_fps) if dts is None
@@ -483,8 +477,7 @@ def stream_recording(frames_u8_seq, Ps, K, dist, to_world_matrix,
     """
     t_wall = time.perf_counter()
     dev = Ps.device
-    cuda = dev.type == "cuda"
-    body_sets = _resolve_sets(body_template, max_bodies, body_sets)
+    body_sets = pipeline._resolve_sets(body_template, max_bodies, body_sets)
     frames = np.asarray(frames_u8_seq)
     T = frames.shape[0]
     if T == 0:
@@ -498,26 +491,23 @@ def stream_recording(frames_u8_seq, Ps, K, dist, to_world_matrix,
                                   for _, mi in body_sets))
     C, KB = rig.num_cameras, cfg.max_blobs
     cutoff = detect.threshold_cutoff(cfg.detect_threshold)
-    ring = [torch.zeros((block, C, KB, 3), pin_memory=cuda)
-            for _ in range(2)]
-    uploaded = [None, None]          # the event after each slot's upload
+    ring = compiled.HostRing(2, (block, C, KB, 3), dev)
     detect_s = [0.0]
     cal = (Ps, K, dist, to_world_matrix, correspond._pairwise_fundamentals(Ps))
     n_blocks = -(-T // block)
 
     def host_detect(i):
-        """Block i into ring slot i % 2; returns its number of frames."""
+        """Block i into the next ring slot; returns (slot, its number of
+        frames)."""
         t0 = time.perf_counter()
-        slot = i % 2
-        if uploaded[slot] is not None:
-            uploaded[slot].synchronize()   # that slot's last upload is done
+        slot = ring.acquire()
         blk = frames[i * block:(i + 1) * block]
-        buf = ring[slot].numpy()
+        buf = ring.bufs[slot].numpy()
         bindings.ingest_detect_packed(blk, cutoff, KB, weighted=weighted,
                                       out=buf[:len(blk)])
         buf[len(blk):] = 0.0
         detect_s[0] += time.perf_counter() - t0
-        return len(blk)
+        return slot, len(blk)
 
     def block_step(n_live):
         key = ("block", block, n_live, _spec(tree.leaves(state)),
@@ -536,17 +526,14 @@ def stream_recording(frames_u8_seq, Ps, K, dist, to_world_matrix,
             1, thread_name_prefix="lcm-offline-detect") as pool:
         nxt = pool.submit(host_detect, 0)
         for i in range(n_blocks):
-            n_live = nxt.result()
-            slot = i % 2
+            slot, n_live = nxt.result()
             step = block_step(n_live)
             if i == 0 or n_live < block:
                 compiled.assign(step.args[2:], cal)
             d = np.zeros((block,), np.float32)
             d[:n_live] = dts[i * block:i * block + n_live]
-            state, out = step(state, ring[slot], d, *step.args[2:])
-            if cuda:
-                uploaded[slot] = torch.cuda.Event()
-                uploaded[slot].record()
+            state, out = step(state, ring.bufs[slot], d, *step.args[2:])
+            ring.fence(slot)
             if i + 1 < n_blocks:
                 nxt = pool.submit(host_detect, i + 1)
             if res is None:

@@ -273,10 +273,11 @@ def tail_kwargs(rig, cfg, with_obs: bool = False) -> dict:
 
 
 def _resolve_sets(body_template, max_bodies, body_sets):
-    """``body_template``/``max_bodies`` is single-set shorthand."""
+    """``body_template``/``max_bodies`` is single-set shorthand.  The result
+    is a tuple with an int count, hashable for offline's cache keys."""
     if body_sets is None and body_template is not None:
-        return ((body_template, max_bodies),)
-    return body_sets or ()
+        return ((body_template, int(max_bodies)),)
+    return tuple(body_sets) if body_sets else ()
 
 
 def _body_stage(body_states, pts, live, dt, body_sets):

@@ -52,7 +52,7 @@ called once costs no more than the step op by op.  A lazy loop of
 ``ChunkedScan.run_until`` runs its whole first run so (a solver's first
 call at a new shape), and captures at the next run.
 
-``_HostRing`` is a ring of page-locked host buffers with an event a slot,
+``HostRing`` is a ring of page-locked host buffers with an event a slot,
 through which the Engine's ingest and readback and offline processing's
 uploads pass; ``copy_stream`` is the stream those uploads run on.
 """
@@ -148,7 +148,7 @@ def _thread_stream(dev: torch.device, kind: str):
     return streams[kind, index]
 
 
-class _HostRing:
+class HostRing:
     """A ring of host buffers for copies between the host and the card.
 
     On a CUDA engine the buffers are page-locked (a ``non_blocking`` copy

@@ -78,6 +78,7 @@ a CPU engine is only ever one the caller asked for (``device="cpu"``).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import os
@@ -113,7 +114,7 @@ from low_cost_mocap_tpu_torch.ops.rotations import quat_to_matrix_np
 from low_cost_mocap_tpu_torch.parallel.dist_pipeline import (
     detect_gather, detect_shard, dist_frame_step, dist_scan_frame_step)
 from low_cost_mocap_tpu_torch.runtime import compiled
-from low_cost_mocap_tpu_torch.runtime.compiled import _HostRing
+from low_cost_mocap_tpu_torch.runtime.compiled import HostRing
 from low_cost_mocap_tpu_torch.runtime.health import CameraHealthMonitor
 from low_cost_mocap_tpu_torch.utils import artifacts, profiling
 from low_cost_mocap_tpu_torch.utils.recordings import save_recording
@@ -124,7 +125,7 @@ class _Readback(NamedTuple):
     is copied into, the layout that decodes it and the body-slot ->
     template map of that layout."""
 
-    ring: _HostRing
+    ring: HostRing
     slot: int
     layout: tuple
     set_of_slot: np.ndarray
@@ -289,17 +290,17 @@ class Engine:
         if mesh is not None:
             H, W = rig.image_hw()
             d = mesh.shape["cam"]
-            self._ingest_ring = _HostRing(
+            self._ingest_ring = HostRing(
                 2 if self._batch > 1 else 4,
                 (d,) + lead + (C // d, H, W // 8), dev, torch.uint8)
         elif self._batch > 1 or self._host_detect:
-            self._ingest_ring = _HostRing(2 if self._batch > 1 else 4,
-                                          lead + (C, K, 3), dev)
+            self._ingest_ring = HostRing(2 if self._batch > 1 else 4,
+                                         lead + (C, K, 3), dev)
         self._configure_step()
+        # dispatched (readback, dts) in dispatch order, per frame or batched
         self._pending: collections.deque = collections.deque()
         self._batch_slot: int | None = None    # ingest slot being filled
         self._batch_dts: list = []
-        self._batch_pending: collections.deque = collections.deque()
 
         self.timer = profiling.StageTimer()
         self._listeners: dict[str, list[Callable[[Any], None]]] = {}
@@ -340,9 +341,9 @@ class Engine:
         L = row_length(*self._layout)
         # the row ring outlasts the deepest pipeline plus the emit
         # worker's backlog
-        self._row_ring = _HostRing(max(cfg.readback_pipeline_depth, 4) + 2,
-                                   (self._batch, L) if self._batch > 1
-                                   else (L,), self.device)
+        self._row_ring = HostRing(max(cfg.readback_pipeline_depth, 4) + 2,
+                                  (self._batch, L) if self._batch > 1
+                                  else (L,), self.device)
         self._steps = self._build_steps()
 
     def _calibration(self) -> tuple:
@@ -433,7 +434,6 @@ class Engine:
             self._kalman_state = make_init_state(rig, device=self.device)
             self._configure_step()
             self._pending.clear()
-            self._batch_pending.clear()
             self._batch_slot = None
             self._batch_dts = []
             # copies into the dropped rows may still be in flight: the old
@@ -507,7 +507,6 @@ class Engine:
                 self._pending.clear()      # pre-reset in-flight readbacks
                 self._batch_slot = None    # pre-reset buffered frames
                 self._batch_dts = []
-                self._batch_pending.clear()
             self.is_capturing_points = True
             self.is_triangulating_points = True
         else:
@@ -1114,22 +1113,11 @@ class Engine:
         the worker to drain instead."""
         if self._emit_worker is not None:
             with self._batch_cond:
-                while self._batch_pending or self._emit_worker_busy:
+                while self._pending or self._emit_worker_busy:
                     self._batch_cond.wait(timeout=0.1)
             return
-        while True:
-            with self._model_lock:
-                if self._batch_pending:
-                    rb, dts = self._batch_pending.popleft()
-                    with self.timer.stage("batch-decode"):
-                        outs = self._decode(rb)
-                elif self._pending:
-                    rb, dt = self._pending.popleft()
-                    outs, dts = self._decode(rb), [dt]
-                else:
-                    return
-            with self.timer.stage("batch-emit"):
-                self._emit_batch_outs(outs, dts, rb.set_of_slot)
+        while self._retire() is not None:
+            pass
 
     def _emit_worker_loop(self) -> None:
         """batch_emit_thread worker: pop dispatched batches in order, wait
@@ -1137,18 +1125,15 @@ class Engine:
         and without launching anything on the card."""
         while True:
             with self._batch_cond:
-                while not self._batch_pending:
+                while not self._pending:
                     if self._emit_worker is None:   # stop() requested
                         return
                     self._batch_cond.wait(timeout=0.2)
-                rb, dts = self._batch_pending.popleft()
+                item = self._pending.popleft()
                 self._emit_worker_busy = True
                 self._batch_cond.notify_all()       # release backpressure
             try:
-                with self.timer.stage("batch-decode"):
-                    outs = self._decode(rb)
-                with self.timer.stage("batch-emit"):
-                    self._emit_batch_outs(outs, dts, rb.set_of_slot)
+                self._retire(item, taken=True)
             except Exception as e:   # a bad batch must not wedge the drain
                 self.emit("engine-error",
                           {"error": f"batch emit worker: {e}"})
@@ -1301,21 +1286,8 @@ class Engine:
                 # the row is the graph's: its copy is enqueued before the
                 # next replay overwrites it
                 rb = self._readback(row)
-            depth = self.cfg.readback_pipeline_depth
-            if depth > 0:
-                # each row keeps its own frame's dt for the trajectory tick
-                self._pending.append((rb, dt))
-                if len(self._pending) <= depth:
-                    return None
-                rb, dt = self._pending.popleft()
-            with self.timer.stage("readback"):
-                out = self._decode(rb)[0]
-
-        self._emit_frame_outputs(out, rb.set_of_slot)
-        self._advance_trajectory(out, float(dt))
-        with self._frame_lock:
-            self._last_out = out
-        return out
+        # each row keeps its own frame's dt for the trajectory tick
+        return self._retire((rb, [dt]))
 
     def _ingest_mesh(self, frames: np.ndarray, slot: int,
                      row: int | None = None) -> None:
@@ -1387,29 +1359,48 @@ class Engine:
                 self._ingest_ring.fence(slot)
                 # the readback carries the layout of the rows it reads,
                 # the dts go along for the trajectory ticks
-                item = (self._readback(rows), dl)
-            if self._emit_worker is not None:
-                # the worker waits for the readback, decodes and emits;
-                # the capture loop never blocks on a readback
-                self._batch_pending.append(item)
-                self._batch_cond.notify_all()
-                cap = max(self.cfg.readback_pipeline_depth, 4)
-                while len(self._batch_pending) > cap:   # backpressure
-                    self._batch_cond.wait(timeout=1.0)
-                return None
-            # readback_pipeline_depth > 0: the host decodes batch N - depth
-            # while the card computes batch N (depth * B frames of latency)
-            depth = self.cfg.readback_pipeline_depth
-            if depth > 0:
-                self._batch_pending.append(item)
-                if len(self._batch_pending) <= depth:
-                    return None
-                item = self._batch_pending.popleft()
-            rb, dl = item
-            with self.timer.stage("batch-decode"):
+                rb = self._readback(rows)
+        return self._retire((rb, dl))
+
+    def _retire(self, item=None, *, taken: bool = False):
+        """The one way back for served rows, in dispatch order.
+
+        ``item``, a dispatched ``(readback, dts)`` (a per-frame row carries
+        ``[dt]``, a batch its B dts), joins the pending queue.  While the
+        emit worker runs, the worker takes it from there, and the capture
+        loop waits only while more than max(depth, 4) are pending, never on
+        a readback.  Otherwise the oldest pending readback is decoded under
+        the model lock once ``readback_pipeline_depth`` newer ones follow
+        it, so batch N - depth decodes while the card computes batch N; with
+        no ``item`` (a flush) at once.  The worker passes the item it has
+        ``taken`` off the queue, decoded outside the lock.  The outputs are
+        emitted outside the lock.  Returns the newest frame's outputs, or
+        None when nothing was emitted."""
+        batched = self._batch > 1
+        stage = "batch-decode" if batched else "readback"
+        if taken:
+            rb, dts = item
+            with self.timer.stage(stage):
                 outs = self._decode(rb)
-        with self.timer.stage("batch-emit"):
-            return self._emit_batch_outs(outs, dl, rb.set_of_slot)
+        else:
+            with self._batch_cond:
+                depth = 0
+                if item is not None:
+                    self._pending.append(item)
+                    depth = self.cfg.readback_pipeline_depth
+                    if self._emit_worker is not None:
+                        self._batch_cond.notify_all()
+                        while len(self._pending) > max(depth, 4):
+                            self._batch_cond.wait(timeout=1.0)
+                        return None
+                if len(self._pending) <= depth:
+                    return None
+                rb, dts = self._pending.popleft()
+                with self.timer.stage(stage):
+                    outs = self._decode(rb)
+        with (self.timer.stage("batch-emit") if batched
+              else contextlib.nullcontext()):
+            return self._emit_batch_outs(outs, dts, rb.set_of_slot)
 
     def _emit_batch_outs(self, outs: list, dts, set_of_slot):
         """Emit outputs in frame order (outside the model lock), one
