@@ -38,15 +38,18 @@ cc_iters 24, 2 candidates per camera, 2 drones, batches of 128:
    every kernel, memset and copy of 20 calls, each launch's record held),
    measured in a process of its own: the profiler keeps fewer of a short
    session's records the older the process is; the bank's forward filter
-   at B = 1,500, M = 32 beside them;
+   at B = 1,500, M = 32 and the smoother's backward pass over its output
+   beside them;
 7. where a served frame's time goes, for detection on the card and on the
    host: each stage timed alone, then device busy time, kernels and copies
    per frame under ``torch.profiler``, and the idle share of each serving
    path;
-8. only with ``--compare-with DIR``: phase 6's kernel times, and [4b]'s
-   and [4c]'s serving (frames/s, kernels per frame), for the checkout in
-   DIR and for this one, in four processes in turns (old, new, new, old)
-   on the same card;
+8. only with ``--compare-with DIR``: the serving bank's SASS against
+   DIR's, instruction for instruction (``check_serving_sass``, also
+   callable alone), then phase 6's kernel times, and [4b]'s and [4c]'s
+   serving (frames/s, kernels per frame), for the checkout in DIR and for
+   this one, in four processes in turns (old, new, new, old) on the same
+   card;
 9. the calibration workflow through ``Engine.handle`` on the card:
    [9a] ``calculate-camera-pose`` from a 1,500-frame wand capture (0.3 px
    noise, 5% of the observations missing, 3% of the frames with a stray
@@ -79,8 +82,9 @@ cc_iters 24, 2 candidates per camera, 2 drones, batches of 128:
    ``smooth=True``; the causal tracks bitwise equal across the three, the
    smoothed ATE below the causal one, both kernels against their plain
    versions on the offline inputs, the bank's forward-filter
-   instantiation (the smoother's, one launch a call) too, with its event
-   ms against its plain chain's; body sets streamed against one-shot;
+   instantiation (the smoother's, one launch a call) and the smoother's
+   backward kernels (two launches a call) too, with their event ms
+   against their plain versions'; body sets streamed against one-shot;
 13. ``batched_track_from_blobs`` over 8 rigs with their own calibrations,
    every rig's rows bitwise equal to its own ``track_from_blobs`` run;
 14. the ``parallel/`` slice, every shard on the one card: [14a]
@@ -1095,6 +1099,18 @@ def bank_bound(case_valid, case_index, B, M, O):
         else "bytes"
 
 
+def backward_bound(T, O):
+    """Least time of the smoother's backward pass over T frames of O
+    objects: bytes are the filtered means and covariances and dts read
+    once and the smoothed ones written once (the gains' scratch is the
+    kernels' own); each object-step does ~5,000 float32 operations (the
+    9x9 LU and nine solves ~2,000, the sweep's two 9x9 products ~3,000)."""
+    nbytes = 2 * T * O * (9 + 81) * 4 + T * 4
+    t_ops, t_bytes = (T - 1) * O * 5000 / PEAK_OPS_S, nbytes / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
+        else "bytes"
+
+
 def device_ms(fn, kernel, runs=TIMING_RUNS):
     """Device time of one call of ``fn`` under ``torch.profiler``: every
     kernel, memset and copy it puts on the card, summed over ``runs``
@@ -1128,10 +1144,10 @@ def kernel_times(frames, args, cands, num_objects):
     """Event-window ms (``cuda_ms``) and device ms (``device_ms``) of the
     two kernels' wrappers at the main path's shapes: detection on
     ``frames``, the bank on ``cands`` at B = len(cands[0]) and at B = 1,
-    and, in a checkout that has it, the bank's forward filter over
-    ``bank_case(OFFLINE_FRAMES)`` (M = 32), as the smoother runs it on a
-    recording.  The profiler sessions come first, while the process is
-    young."""
+    and, in a checkout that has them, the bank's forward filter over
+    ``bank_case(OFFLINE_FRAMES)`` (M = 32) and the backward pass over its
+    output, as the smoother runs them on a recording.  The profiler
+    sessions come first, while the process is young."""
     import torch
 
     from low_cost_mocap_tpu_torch.ops import detect_cuda, kalman, kalman_cuda
@@ -1150,6 +1166,11 @@ def kernel_times(frames, args, cands, num_objects):
         st2 = kalman.init_state(2, device=DEVICE)
         calls[f"kalman_bank forward B={OFFLINE_FRAMES}"] = (
             lambda: kalman_cuda.forward_scan(st2, *rec), "kalman_bank")
+    if hasattr(kalman_cuda, "backward_scan"):
+        _, ((_, xs, Ps), _) = kalman_cuda.forward_scan(st2, *rec)
+        calls[f"kalman_bank backward T={OFFLINE_FRAMES}"] = (
+            lambda: kalman_cuda.backward_scan(xs, Ps, rec[4]),
+            "kalman_bank_rts_sweep")
     dev = {name: device_ms(fn, kernel)
            for name, (fn, kernel) in calls.items()}
     return {name: {"ms": cuda_ms(fn), "device_ms": dev[name][0],
@@ -1462,12 +1483,64 @@ def serve_rates():
             "kernels_per_frame": kernels}
 
 
+def kernel_sass(root, *parts):
+    """{part: SASS instructions} of the kernels whose mangled names hold
+    ``parts`` in the checkout at ``root``: its ``csrc/kalman_bank.cu``
+    built with the port's nvcc flags into a temporary directory, then
+    ``cuobjdump -sass``, without addresses and encodings."""
+    import re
+    import tempfile
+
+    from low_cost_mocap_tpu_torch.ops import native
+
+    src = os.path.join(root, "low_cost_mocap_tpu_torch", "csrc",
+                       "kalman_bank.cu")
+    nvcc = native.nvcc_path()
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = os.path.join(tmp, "lib.so")
+        subprocess.run([nvcc, *native.NVCC_FLAGS, "-o", lib, src],
+                       check=True, capture_output=True, timeout=600)
+        dump = subprocess.run(
+            [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", lib],
+            check=True, capture_output=True, text=True, timeout=600).stdout
+    out = {}
+    for part in parts:
+        blocks = [b for b in dump.split("Function : ")[1:]
+                  if part in b.split("\n", 1)[0]]
+        check(len(blocks) == 1,
+              f"{len(blocks)} kernels named *{part}* in {src}")
+        out[part] = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;",
+                               blocks[0])
+    return out
+
+
+def check_serving_sass(old_root):
+    """[8] The serving bank's instantiation (``kalman_bank_kernel<false>``)
+    compiles to the same SASS here as in the checkout at ``old_root``,
+    instruction for instruction; with the instruction counts of the
+    file's other kernels."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    serving = "kalman_bank_kernelILb0E"
+    old = kernel_sass(old_root, serving)[serving]
+    sass = kernel_sass(here, serving, "kalman_bank_kernelILb1E",
+                       "kalman_bank_rts_gains", "kalman_bank_rts_sweep")
+    new = sass.pop(serving)
+    diff = next((i for i, (a, b) in enumerate(zip(old, new)) if a != b),
+                None if len(old) == len(new) else min(len(old), len(new)))
+    check(diff is None, f"[8] the serving bank's SASS differs from "
+          f"{old_root}'s at instruction {diff} of {len(new)} ({len(old)})")
+    print(f"[8] the serving bank's SASS equals {old_root}'s, instruction "
+          f"for instruction ({len(new)}); instructions of the other kernels "
+          + ", ".join(f"{k} {len(v)}" for k, v in sass.items()))
+
+
 def phase_compare(old_root, frames, args, cands, num_objects):
     """[8] The kernels of another checkout (``old_root``, a directory that
     holds its ``low_cost_mocap_tpu_torch``) against this one's, on the same
     card and the same inputs: four processes in turns, old, new, new, old,
     each building its own kernels, running ``kernel_times`` and serving
-    with ``serve_rates``."""
+    with ``serve_rates``; first ``check_serving_sass``."""
+    check_serving_sass(old_root)
     here = os.path.dirname(os.path.abspath(__file__))
     runs = []
     for label, root in (("old", old_root), ("new", here), ("new", here),
@@ -2851,13 +2924,16 @@ def phase_offline(rig, cfg, Rs, ts):
     timed("stream_recording", lambda: offline.stream_recording(
         frames, *cal, rig, cfg, dts=dts, block=OFFLINE_BLOCK,
         stats=stats)[0], 0, -(-T // OFFLINE_BLOCK))
-    f0 = kalman_cuda.forward_launches
-    # the causal bank and the smoother's forward filter: one launch each
+    f0, b0 = kalman_cuda.forward_launches, kalman_cuda.backward_launches
+    # the causal bank and the smoother's forward filter, one launch each,
+    # and its backward pass, two
     timed("process_recording, smooth", lambda: offline.process_recording(
         (blobs, valid), *cal, rig, cfg, dts=dts, chunk=OFFLINE_CHUNK,
-        smooth=True), 0, 2)
-    check(kalman_cuda.forward_launches - f0 == 1, "[12] process_recording, "
-          f"smooth: {kalman_cuda.forward_launches - f0} forward launches")
+        smooth=True), 0, 4)
+    fb = (kalman_cuda.forward_launches - f0,
+          kalman_cuda.backward_launches - b0)
+    check(fb == (1, 2), "[12] process_recording, smooth: (forward, "
+          f"backward) launches {fb}, want (1, 2)")
     ref = runs["process_recording, host blobs"].tracked
     for name, res in runs.items():
         check(all(torch.equal(a, b) for a, b in zip(res.tracked, ref)),
@@ -2922,6 +2998,24 @@ def phase_offline(rig, cfg, Rs, ts):
           "outputs differ from the plain chain's")
     fwd_ms = cuda_ms(lambda: kalman_cuda.forward_scan(st, *case, **noise),
                      runs=3)
+    # its backward pass on the forward filter's output: two launches
+    # against its plain version (the gains batched, the sweep op by op)
+    _, ((_, xs, Ps), _) = fwd1
+    q = dict(process_noise=cfg.kalman_process_noise)
+    b0 = kalman_cuda.backward_launches
+    bwd1 = kalman_cuda.backward_scan(xs, Ps, d, **q)
+    check(kalman_cuda.backward_launches - b0 == 2, "[12] backward pass: "
+          f"{kalman_cuda.backward_launches - b0} launches for one call")
+    ev[0].record()
+    bwd2 = kalman.rts_smooth(xs, Ps, d, **q)
+    ev[1].record()
+    torch.cuda.synchronize()
+    bwd_plain = ev[0].elapsed_time(ev[1])
+    check(same_results(bwd1, bwd2), f"[12] backward kernels T={T}: outputs "
+          "differ from the plain version's")
+    bwd_ms = cuda_ms(lambda: kalman_cuda.backward_scan(xs, Ps, d, **q),
+                     runs=3)
+    bwd_bound, bwd_by = backward_bound(T, rig.num_objects)
 
     # body sets, streamed against one-shot, on [10a]'s scene
     brig = dataclasses.replace(rig, body_markers=BODY_TMPL_A, max_bodies=2,
@@ -2981,7 +3075,10 @@ def phase_offline(rig, cfg, Rs, ts):
           f"{bank_long_plain:.1f} ms, one call; bound {bank_long_bound:.3e} "
           f"ms by {bank_long_by}); its forward filter (the smoother's) "
           f"bitwise equal to the plain chain, {fwd_ms:.4f} ms (plain chain "
-          f"{fwd_plain:.1f} ms, one call)")
+          f"{fwd_plain:.1f} ms, one call); its backward pass T={T}, "
+          f"O={rig.num_objects} bitwise equal to the plain version, "
+          f"{bwd_ms:.4f} ms (plain {bwd_plain:.1f} ms, one call; bound "
+          f"{bwd_bound:.3e} ms by {bwd_by})")
     print(f"[12] body sets (I=3) over {BODY_STREAM_FRAMES} frames of the "
           f"body scene: one-shot (host detection included) {t_one:.2f} s, "
           f"stream_recording {t_stream:.2f} s, tracks, fits and body "
@@ -3953,13 +4050,14 @@ def phase_offline_graphs(data):
     cases = [
         ("process_recording, frames", one_shot(frames, T), T,
          -(-T // OFFLINE_CHUNK), 1),
-        # smooth: the causal bank and the forward filter, a launch each
+        # smooth: the causal bank and the forward filter, a launch each,
+        # and the backward pass, two
         ("process_recording, host blobs, smooth",
-         one_shot((blobs, valid), T, smooth=True), T, 0, 2),
+         one_shot((blobs, valid), T, smooth=True), T, 0, 4),
         ("process_recording, body sets, smooth",
          lambda: offline.process_recording(
              b_blobs, *cal, brig, bcfg, dts=bd, chunk=OFFLINE_BLOCK,
-             body_sets=sets, smooth=True), len(bd), 0, 2),
+             body_sets=sets, smooth=True), len(bd), 0, 4),
         ("stream_recording", lambda: offline.stream_recording(
             frames, *cal, rig, cfg, dts=dts, block=OFFLINE_BLOCK)[0], T, 0,
          -(-T // OFFLINE_BLOCK)),

@@ -496,6 +496,262 @@ int launch(const void* cand_pos, const void* cand_head,
 
 }  // namespace
 
+// ---------------------------------------------------------------------
+// The RTS smoother's backward pass: two kernels a recording.
+//
+// It replaces no TPU kernel: the JAX package's backward pass
+// (low_cost_mocap_tpu/ops/kalman.py:rts_smooth) is a lax.scan of jnp
+// einsums and an inverse.  Its plain version is
+// low_cost_mocap_tpu_torch/ops/kalman.py:rts_smooth (_rts_gains, then
+// _rts_step through the loop runner), which performs these float32
+// operations in this order, so the two agree bitwise.
+//
+// What bounds it on an H100.  Not bytes (~2 MB a 1,500-frame recording of
+// two objects) and not arithmetic (a few MFLOP): the sweep's chain of
+// dependent steps, T - 1 of them, each a 9x9 update of the carry.  The
+// recursion's gain C_k = P_k F' P_pred^-1 does not depend on the carry, so
+// the design takes everything but the carry's update off the chain:
+// - kalman_bank_rts_gains: every (k, o) at once, nine threads a problem
+//   (thread r owns row r of C_k), enough to fill the card.  Each thread
+//   builds P_pred = (F P_k) F' + Q as slice arithmetic, factors it in
+//   registers (LU without pivoting, which its positive definiteness makes
+//   stable; Cholesky would read one triangle of a matrix that is symmetric
+//   only to rounding, and solve another system), and solves
+//   c P_pred = (P_k F')[r] by substitution: no inverse.  C, x_pred and
+//   P_pred go to scratch.
+// - kalman_bank_rts_sweep: one warp an object, lane i (0-8) holding row i
+//   of the smoothed covariance, the smoothed mean on every lane.  Each step
+//   x_s[k] = x_k + C (x_s[k+1] - x_pred) and P_s[k] = P_k + (C D) C' with
+//   D = P_s[k+1] - P_pred.  The rows of C and D every lane needs go
+//   through shared memory (double-buffered, one __syncwarp a step, read
+//   as float4), the new mean by shuffles.  Step k-1's C, P_k, P_pred and
+//   means are loaded into registers while step k computes, so no global
+//   load sits on the chain.
+// Every sum runs in index order (j = 0 .. 8); built with -fmad=false.
+
+namespace {
+
+constexpr int RTS_ROW = 12;                   // padded row: three float4
+constexpr int RTS_MAT = 9 * RTS_ROW;          // one 9x9 matrix in smem
+constexpr int RTS_WARP = 4 * RTS_MAT;         // two buffers of C and D
+
+// The transition on one index of a 9-vector v: (F v)[i] as slice
+// arithmetic (v[i], v[i+3], v[i+6] of one row or column).
+__device__ __forceinline__ float f_at(int i, float a, float b, float c,
+                                      float dt, float hdt2) {
+  return i < 3 ? (a + dt * b) + hdt2 * c : i < 6 ? a + dt * b : a;
+}
+
+__global__ void kalman_bank_rts_gains(
+    const float* __restrict__ xs,      // (T, O, 9) filtered means
+    const float* __restrict__ Ps,      // (T, O, 9, 9) filtered covariances
+    const float* __restrict__ dts,     // (T,)
+    float* __restrict__ C_out,         // (T-1, O, 9, 9)
+    float* __restrict__ xp_out,        // (T-1, O, 9)
+    float* __restrict__ Pp_out,        // (T-1, O, 9, 9)
+    long long N, int O, float q) {     // N = (T-1) * O problems
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long p = g / 9;           // problem (k, o), k * O + o
+  const int r = (int)(g - p * 9);      // this thread's row of C
+  if (p >= N) return;
+  const float dt = dts[p / O + 1];
+  const float hdt2 = 0.5f * dt * dt;
+  const float* P = Ps + p * 81;
+  const float* x = xs + p * 9;
+
+  // A = (F P) F' + Q: row i of F P from rows i, i+3, i+6, then the
+  // columns
+  float A[9][9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    float fp[9];
+#pragma unroll
+    for (int j = 0; j < 9; ++j)
+      fp[j] = f_at(i, P[i * 9 + j], i < 6 ? P[(i + 3) * 9 + j] : 0.0f,
+                   i < 3 ? P[(i + 6) * 9 + j] : 0.0f, dt, hdt2);
+#pragma unroll
+    for (int j = 0; j < 9; ++j)
+      A[i][j] = f_at(j, fp[j], j < 6 ? fp[j + 3] : 0.0f,
+                     j < 3 ? fp[j + 6] : 0.0f, dt, hdt2) +
+                (i == j ? q : 0.0f);
+  }
+  // this thread's outputs beside C: x_pred[r] and row r of P_pred
+  const float* pr = P + r * 9;
+  const float xpr = f_at(r, x[r], r < 6 ? x[r + 3] : 0.0f,
+                         r < 3 ? x[r + 6] : 0.0f, dt, hdt2);
+  xp_out[p * 9 + r] = xpr;
+#pragma unroll
+  for (int i = 0; i < 9; ++i)
+    if (i == r) {
+#pragma unroll
+      for (int j = 0; j < 9; ++j) Pp_out[p * 81 + i * 9 + j] = A[i][j];
+    }
+  // row r of P F'
+  float gr[9];
+#pragma unroll
+  for (int j = 0; j < 9; ++j)
+    gr[j] = f_at(j, pr[j], j < 6 ? pr[j + 3] : 0.0f,
+                 j < 3 ? pr[j + 6] : 0.0f, dt, hdt2);
+
+  // A = L U in place (Doolittle: L unit lower below the diagonal, U on
+  // and above it)
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+#pragma unroll
+    for (int m = j; m < 9; ++m) {
+      float u = A[j][m];
+#pragma unroll
+      for (int k = 0; k < j; ++k) u = u - A[j][k] * A[k][m];
+      A[j][m] = u;
+    }
+#pragma unroll
+    for (int i = j + 1; i < 9; ++i) {
+      float l = A[i][j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) l = l - A[i][k] * A[k][j];
+      A[i][j] = div_rn(l, A[j][j]);
+    }
+  }
+  // row r of C: w U = gr, then c L = w
+  float w[9];
+#pragma unroll
+  for (int m = 0; m < 9; ++m) {
+    float t = gr[m];
+#pragma unroll
+    for (int k = 0; k < m; ++k) t = t - w[k] * A[k][m];
+    w[m] = div_rn(t, A[m][m]);
+  }
+  float c[9];
+#pragma unroll
+  for (int m = 8; m >= 0; --m) {
+    float t = w[m];
+#pragma unroll
+    for (int k = m + 1; k < 9; ++k) t = t - c[k] * A[k][m];
+    c[m] = t;
+  }
+#pragma unroll
+  for (int j = 0; j < 9; ++j) C_out[p * 81 + r * 9 + j] = c[j];
+}
+
+// One step's inputs of the sweep, as lane `row` holds them.
+struct RtsStage {
+  float c[9];    // row of C_k
+  float pk[9];   // row of P_k
+  float pp[9];   // row of P_pred
+  float xp[9];   // x_pred, all of it
+  float xk;      // x_k[row]
+};
+
+__device__ __forceinline__ void rts_load(
+    RtsStage& s, const float* __restrict__ xs, const float* __restrict__ Ps,
+    const float* __restrict__ C, const float* __restrict__ xp,
+    const float* __restrict__ Pp, size_t ko, int row) {
+  const size_t m = ko * 81 + row * 9;
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    s.c[j] = C[m + j];
+    s.pk[j] = Ps[m + j];
+    s.pp[j] = Pp[m + j];
+    s.xp[j] = xp[ko * 9 + j];
+  }
+  s.xk = xs[ko * 9 + row];
+}
+
+__global__ void kalman_bank_rts_sweep(
+    const float* __restrict__ xs, const float* __restrict__ Ps,
+    const float* __restrict__ C, const float* __restrict__ xp,
+    const float* __restrict__ Pp,
+    float* __restrict__ xs_out,        // (T, O, 9)
+    float* __restrict__ Ps_out,        // (T, O, 9, 9)
+    int T, int O, int warps) {
+  extern __shared__ float4 smem4[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int o = blockIdx.x * warps + warp;
+  if (o >= O) return;                  // a whole warp; no block barrier
+  const int row = lane % 9;            // lanes 9-31 repeat rows 0-8
+  const bool owner = lane < 9;
+  float* sw = (float*)smem4 + warp * RTS_WARP;
+
+  // the carry: the last frame, which is also its smoothed value
+  const size_t last = (size_t)(T - 1) * O + o;
+  float xn[9], pn[9];
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    xn[j] = xs[last * 9 + j];
+    pn[j] = Ps[last * 81 + row * 9 + j];
+  }
+  if (owner) {
+    xs_out[last * 9 + row] = xs[last * 9 + row];
+#pragma unroll
+    for (int j = 0; j < 9; ++j) Ps_out[last * 81 + row * 9 + j] = pn[j];
+  }
+
+  RtsStage cur, nxt;
+  rts_load(cur, xs, Ps, C, xp, Pp, (size_t)(T - 2) * O + o, row);
+  for (int k = T - 2; k >= 0; --k) {
+    const size_t ko = (size_t)k * O + o;
+    if (k > 0) rts_load(nxt, xs, Ps, C, xp, Pp, ko - O, row);
+    float* sc = sw + (k & 1) * 2 * RTS_MAT;   // C rows, then D rows
+    float* sd = sc + RTS_MAT;
+    if (owner) {
+#pragma unroll
+      for (int j = 0; j < 9; ++j) {
+        sc[row * RTS_ROW + j] = cur.c[j];
+        sd[row * RTS_ROW + j] = pn[j] - cur.pp[j];
+      }
+    }
+    __syncwarp();
+
+    // x_s[k][row] = x_k[row] + sum_j C[row][j] (x_s[k+1] - x_pred)[j]
+    float dx[9];
+#pragma unroll
+    for (int j = 0; j < 9; ++j) dx[j] = xn[j] - cur.xp[j];
+    float acc = cur.c[0] * dx[0];
+#pragma unroll
+    for (int j = 1; j < 9; ++j) acc = acc + cur.c[j] * dx[j];
+    const float xi = cur.xk + acc;
+
+    // U = C D on this row: U[m] = sum_j C[row][j] D[j][m]
+    float u[9];
+#pragma unroll
+    for (int j = 0; j < 9; ++j) {
+      const float4* d4 = (const float4*)(sd + j * RTS_ROW);
+      const float4 a = d4[0], b = d4[1], e = d4[2];
+      const float d[9] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, e.x};
+#pragma unroll
+      for (int m = 0; m < 9; ++m)
+        u[m] = j == 0 ? cur.c[0] * d[m] : u[m] + cur.c[j] * d[m];
+    }
+    // P_s[k][row][l] = P_k[row][l] + sum_m U[m] C[l][m]
+    float pnew[9];
+#pragma unroll
+    for (int l = 0; l < 9; ++l) {
+      const float4* c4 = (const float4*)(sc + l * RTS_ROW);
+      const float4 a = c4[0], b = c4[1], e = c4[2];
+      const float cl[9] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, e.x};
+      float s = u[0] * cl[0];
+#pragma unroll
+      for (int m = 1; m < 9; ++m) s = s + u[m] * cl[m];
+      pnew[l] = cur.pk[l] + s;
+    }
+
+    // the new carry; the mean comes from lanes 0-8
+#pragma unroll
+    for (int j = 0; j < 9; ++j) {
+      xn[j] = __shfl_sync(FULL, xi, j);
+      pn[j] = pnew[j];
+    }
+    if (owner) {
+      xs_out[ko * 9 + row] = xi;
+#pragma unroll
+      for (int j = 0; j < 9; ++j) Ps_out[ko * 81 + row * 9 + j] = pnew[j];
+    }
+    cur = nxt;
+  }
+}
+
+}  // namespace
+
 // The serving bank: B steps with report "pre" or "post".
 extern "C" int lcm_kalman_bank(
     const void* cand_pos, const void* cand_head, const void* cand_index,
@@ -522,4 +778,33 @@ extern "C" int lcm_kalman_forward(
   return launch<true>(cand_pos, cand_head, cand_index, cand_valid, dts,
                       ba_host, x_in, P_in, init_in, prev_in, lh_in, lv_in,
                       age_in, out, B, M, O, q, r, gap_reset_s, 1, stream);
+}
+
+// The RTS smoother's backward pass over T >= 2 frames of O >= 1 objects:
+// the gains, then the sweep, on one stream.  out: float32 xs_s (T, O, 9)
+// then Ps_s (T, O, 9, 9).  scratch: float32 C (T-1, O, 9, 9), x_pred
+// (T-1, O, 9), P_pred (T-1, O, 9, 9).
+extern "C" int lcm_kalman_rts(const void* xs, const void* Ps,
+                              const void* dts, void* out, void* scratch,
+                              int T, int O, float q, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long N = (long long)(T - 1) * O;
+  float* C = (float*)scratch;
+  float* xp = C + N * 81;
+  float* Pp = xp + N * 9;
+  float* xs_out = (float*)out;
+  float* Ps_out = xs_out + (size_t)T * O * 9;
+  const int threads = 9 * 32;          // 32 problems a block
+  kalman_bank_rts_gains<<<(unsigned)((N * 9 + threads - 1) / threads),
+                          threads, 0, st>>>(
+      (const float*)xs, (const float*)Ps, (const float*)dts, C, xp, Pp, N,
+      O, q);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int warps = O < MAX_WARPS ? O : MAX_WARPS;
+  kalman_bank_rts_sweep<<<(O + warps - 1) / warps, 32 * warps,
+                          warps * RTS_WARP * sizeof(float), st>>>(
+      (const float*)xs, (const float*)Ps, C, xp, Pp, xs_out, Ps_out, T, O,
+      warps);
+  return (int)cudaGetLastError();
 }

@@ -19,8 +19,10 @@ path runs) and through the stateful trackers in time order:
 - ``smooth=True`` adds the RTS smoother (``kalman.smooth_sequence``: its
   forward filter, ``advance_on_miss``, is the ``kalman_bank`` kernel's
   forward instantiation over the whole sequence in one launch,
-  ``kalman_cuda.forward_scan``; its backward pass a loop) and, with body
-  sets, ``smooth_body_sequence``.
+  ``kalman_cuda.forward_scan``; its backward pass two launches of the
+  file's backward kernels, ``kalman_cuda.backward_scan``: the gains of
+  every step at once, then one sweep) and, with body sets,
+  ``smooth_body_sequence``.
 
 ``stream_recording`` processes unbounded recordings in blocks with the
 tracker state carried across blocks and calls: a worker thread detects the
@@ -36,17 +38,18 @@ Both run as compiled steps (``runtime/compiled.py``; the JAX package's
 ``_compiled_run`` and ``_compiled_block``), cached by shape and never by
 the recording's length: the chunk's vision is one step of ``chunk`` frame
 sets (the last chunk zero-padded; its dead frame sets are dropped), each
-per-frame loop (the drone smoother's backward pass, the body smoother's
-passes, the body trackers, the sign alignment) a ``ChunkedScan`` of
-``chunk`` frames, and a streamed block one step with the trackers over its
-live frames (one for a full block, one for the partial last block).  The
-causal bank and the drone smoother's forward filter stay one kernel launch
-over T each; on the CPU the forward filter is a ``ChunkedScan`` of the
-plain chain.  On the card each is a CUDA graph captured at its
-first use, but for a streamed block, which is built lazy: its first call
-runs op by op and the capture comes at its second, so the partial last
-block that a call runs once costs what it costs op by op, and is captured
-by the next recording that ends in a block of its length.  On the CPU,
+per-frame loop (the body smoother's passes, the body trackers, the sign
+alignment) a ``ChunkedScan`` of ``chunk`` frames, and a streamed block one
+step with the trackers over its live frames (one for a full block, one
+for the partial last block).  The causal bank and the drone smoother's
+forward filter stay one kernel launch over T each, and its backward pass
+two; on the CPU the forward filter and the backward sweep are
+``ChunkedScan``s of their plain chains.  On the card each step is a
+CUDA graph captured at its first use, but for a streamed block, which is
+built lazy: its first call runs op by op and the capture comes at its
+second, so the partial last block that a call runs once costs what it
+costs op by op, and is captured by the next recording that ends in a
+block of its length.  On the CPU,
 and under ``compiled.disable_graphs()``, the same steps run op by op over
 their buffers.  A capture that fails raises.
 The cached steps' buffers are shared, so one offline call runs at a time
@@ -335,7 +338,8 @@ def process_recording(frames_seq, Ps, K, dist, to_world_matrix,
     ``ChunkedScan``s of ``chunk`` frames, all cached by shape
     (``_VISION``, ``_SCANS``): a recording of any length replays them.
     On the card the drone smoother's forward filter is one kernel launch
-    (``kalman_cuda.forward_scan``) instead of a loop.
+    (``kalman_cuda.forward_scan``) and its backward pass two
+    (``kalman_cuda.backward_scan``) instead of loops.
     One offline call runs at a time in a process (``_LOCK``).
     """
     dev = Ps.device
@@ -403,7 +407,8 @@ def process_recording(frames_seq, Ps, K, dist, to_world_matrix,
                 loc.heading, loc.index, loc.valid, dts,
                 process_noise=cfg.kalman_process_noise,
                 meas_noise=cfg.kalman_measurement_noise, scan=scan,
-                forward=kalman_cuda.forward_scan)
+                forward=kalman_cuda.forward_scan,
+                backward=kalman_cuda.backward_scan)
         if body_sets:
             _, body_tracks = _track_bodies(
                 tuple(body_tracker.init_state(mi, device=dev)

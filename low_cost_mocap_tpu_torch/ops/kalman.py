@@ -3,14 +3,16 @@
 Counterpart of ``low_cost_mocap_tpu/ops/kalman.py``: ``update`` (the O
 objects are one batch axis; the JAX package vmaps them), the offline
 filter ``track_sequence`` and the fixed-interval Rauch-Tung-Striebel
-smoothers ``rts_smooth`` (a backward loop) and ``rts_smooth_assoc`` (the
-same recursion as affine maps composed by a log-depth scan), with
-``smooth_sequence`` running a forward pass and the smoother.  The
-smoothers take their loop runner (``scan``, ``utils.tree.scan`` by
-default), so the offline path can run each loop as a replayed graph, and
-``smooth_sequence`` takes its forward pass as a runner too
-(``forward_filter`` by default; the offline path passes
-``kalman_cuda.forward_scan``, one kernel launch on the card).
+smoothers ``rts_smooth`` (the gains of every step at once, then a backward
+sweep) and ``rts_smooth_assoc`` (the same recursion as affine maps
+composed by a log-depth scan), with ``smooth_sequence`` running a forward
+pass and the smoother.  The smoothers take their loop runner (``scan``,
+``utils.tree.scan`` by default), so the offline path can run each loop as
+a replayed graph, and ``smooth_sequence`` takes both passes as runners too
+(``forward_filter`` and ``rts_smooth`` by default; the offline path passes
+``kalman_cuda.forward_scan``, one kernel launch on the card, and
+``kalman_cuda.backward_scan``, two).  ``rts_smooth`` is the plain version
+of the backward kernels: the same float32 operations in the same order.
 
 ``update`` is the plain PyTorch version of the bank kernel
 (``ops/kalman_cuda.py``, ``csrc/kalman_bank.cu``) on the serving options
@@ -97,14 +99,11 @@ def _process(device: torch.device, dtype, process_noise: float):
     return eye * process_noise, eye
 
 
-def _f_rows(m, dt, hdt2):
-    """F @ m along axis 1 of (O, 9, ...): the CA-model transition as slice
-    arithmetic."""
-    return torch.cat([
-        (m[:, 0:3] + dt * m[:, 3:6]) + hdt2 * m[:, 6:9],
-        m[:, 3:6] + dt * m[:, 6:9],
-        m[:, 6:9],
-    ], dim=1)
+def _f_along(m, dt, hdt2, dim):
+    """The CA-model transition applied along ``dim`` of ``m`` (9 long
+    there) as slice arithmetic: F @ m on rows, m @ F' on columns."""
+    a, b, c = m.split(3, dim=dim)
+    return torch.cat([(a + dt * b) + hdt2 * c, b + dt * c, c], dim=dim)
 
 
 def update(state: KalmanState, cand_pos, cand_heading, cand_index,
@@ -146,13 +145,9 @@ def update(state: KalmanState, cand_pos, cand_heading, cand_index,
 
     # predict
     hdt2 = 0.5 * dt * dt
-    x_pre = _f_rows(x, dt, hdt2)
-    FP = _f_rows(P, dt, hdt2)                                    # F @ P
-    P_pre = torch.cat([
-        (FP[:, :, 0:3] + dt * FP[:, :, 3:6]) + hdt2 * FP[:, :, 6:9],
-        FP[:, :, 3:6] + dt * FP[:, :, 6:9],
-        FP[:, :, 6:9],
-    ], dim=2) + Q
+    x_pre = _f_along(x, dt, hdt2, 1)
+    # (F @ P) @ F^T + Q
+    P_pre = _f_along(_f_along(P, dt, hdt2, 1), dt, hdt2, 2) + Q
 
     # associate: nearest candidate to the predicted position (first min)
     dp = cand_pos[None, :, :] - x_pre[:, None, 0:3]              # (O, M, 3)
@@ -253,18 +248,72 @@ def _transition(dt):
     return F
 
 
-def _rts_step(carry, x_k, P_k, Fk, *, process_noise: float):
-    """One step of the RTS backward recursion: (x_s, P_s) at k+1 -> at k,
-    as both the carry and the output."""
+def _rts_gains(xs, Ps, dts, *, process_noise: float):
+    """The backward pass's first phase, every step k = 0 .. T-2 at once
+    (nothing in it depends on the smoothed carry): x_pred = F x_k, P_pred =
+    F P_k F' + Q and the gain C_k = P_k F' P_pred^-1, with F = F(dts[k+1])
+    as slice arithmetic.  C_k comes from a solve, not an inverse: P_pred =
+    L U (Doolittle, L unit lower), then row r of C_k solves c P_pred =
+    (P_k F')[r], every sum written out in index order.  LU without
+    pivoting, which P_pred's positive definiteness makes stable, and not
+    Cholesky: the filtered covariances are symmetric only to rounding, and
+    a factor read from one triangle solves another system, which moves the
+    smoothed states past the JAX package's tolerance after a long
+    interval.  The ``kalman_bank_rts_gains`` kernel performs these float32
+    operations in this order.  Returns (C, x_pred, P_pred) with leading
+    (T-1, O)."""
+    Q = _process(xs.device, xs.dtype, float(process_noise))[0]
+    dt = dts[1:, None, None]
+    hdt2 = 0.5 * dt * dt
+    x, P, dt4, hdt4 = xs[:-1], Ps[:-1], dt[..., None], hdt2[..., None]
+    x_pred = _f_along(x, dt, hdt2, -1)
+    A = _f_along(_f_along(P, dt4, hdt4, -2), dt4, hdt4, -1) + Q
+    G = _f_along(P, dt4, hdt4, -1)                            # P_k F'
+    # U[j]: row j of U from the diagonal on; L[j]: column j of L below it
+    U, L = [], []
+    for j in range(9):
+        u, l = A[..., j, j:], A[..., j + 1:, j]
+        for k in range(j):
+            u = u - L[k][..., j - k - 1:j - k] * U[k][..., j - k:]
+            l = l - L[k][..., j - k:] * U[k][..., j - k:j - k + 1]
+        U.append(u)
+        L.append(l / u[..., :1])
+    # all nine rows of C at once: w U = G[r], then c L = w
+    w = []
+    for m in range(9):
+        t = G[..., m]
+        for k in range(m):
+            t = t - w[k] * U[k][..., m - k:m - k + 1]
+        w.append(t / U[m][..., :1])
+    c = [None] * 9
+    for m in range(8, -1, -1):
+        t = w[m]
+        for k in range(m + 1, 9):
+            t = t - c[k] * L[m][..., k - m - 1:k - m]
+        c[m] = t
+    return torch.stack(c, dim=-1), x_pred, A
+
+
+def _rts_step(carry, x_k, P_k, C, x_pred, P_pred):
+    """One step of the backward sweep with its gain from ``_rts_gains``:
+    (x_s, P_s) at k+1 -> at k, as both the carry and the output.  x_s[k] =
+    x_k + C (x_s[k+1] - x_pred); P_s[k] = P_k + (C (P_s[k+1] - P_pred)) C',
+    each sum written out in index order, as the ``kalman_bank_rts_sweep``
+    kernel computes it."""
     x_s, P_s = carry
-    Q = _process(x_k.device, x_k.dtype, float(process_noise))[0]
-    x_pred = torch.einsum("ij,oj->oi", Fk, x_k)
-    P_pred = torch.einsum("ij,ojk,lk->oil", Fk, P_k, Fk) + Q
-    # inv_ex: no check that reads the result back to the host
-    C = torch.einsum("oij,kj,okl->oil", P_k, Fk,
-                     torch.linalg.inv_ex(P_pred).inverse)
-    x_s = x_k + torch.einsum("oij,oj->oi", C, x_s - x_pred)
-    P_s = P_k + torch.einsum("oij,ojk,olk->oil", C, P_s - P_pred, C)
+    dx = x_s - x_pred
+    acc = C[..., 0] * dx[..., 0:1]
+    for j in range(1, 9):
+        acc = acc + C[..., j] * dx[..., j:j + 1]
+    x_s = x_k + acc
+    D = P_s - P_pred
+    U = C[..., 0:1] * D[..., 0:1, :]                          # C D
+    for j in range(1, 9):
+        U = U + C[..., j:j + 1] * D[..., j:j + 1, :]
+    acc = U[..., 0:1] * C[..., None, :, 0]                    # (C D) C'
+    for m in range(1, 9):
+        acc = acc + U[..., m:m + 1] * C[..., None, :, m]
+    P_s = P_k + acc
     return (x_s, P_s), (x_s, P_s)
 
 
@@ -276,18 +325,21 @@ def rts_smooth(xs, Ps, dts, *, process_noise: float = 1e-2,
     from a forward pass that made one predict(dts[k]) a frame
     (``advance_on_miss=True``, ``return_cov=True``); dts[k] is the interval
     between frames k-1 and k.  Returns (xs_smooth, Ps_smooth), the last
-    frame the filtered one.  Per k = T-2 .. 0, batched over the objects:
-    P_pred = F P_k F' + Q, C = P_k F' P_pred^-1, x_s[k] = x[k] + C
-    (x_s[k+1] - F x[k]), P_s[k] = P_k + C (P_s[k+1] - P_pred) C'.
-    ``scan``: the loop runner, ``utils.tree.scan``'s signature (the
-    offline path passes a compiled one).
+    frame the filtered one.  Two phases, batched over the objects: the
+    gains C_k = P_k F' P_pred^-1 (P_pred = F P_k F' + Q), which do not
+    depend on the carry, for every k at once (``_rts_gains``); then the
+    sweep k = T-2 .. 0: x_s[k] = x[k] + C_k (x_s[k+1] - F x[k]), P_s[k] =
+    P_k + C_k (P_s[k+1] - P_pred) C_k' (``_rts_step``).  ``scan``: the
+    sweep's loop runner, ``utils.tree.scan``'s signature (the offline path
+    passes a compiled one).  The plain version of
+    ``kalman_cuda.backward_scan``: the same float32 operations in the same
+    order.
     """
     if xs.shape[0] < 2:
         return xs, Ps
-    F = _transition(dts[1:])                                  # (T-1, 9, 9)
-    _, (x_s, P_s) = scan(
-        functools.partial(_rts_step, process_noise=process_noise),
-        (xs[-1], Ps[-1]), xs[:-1], Ps[:-1], F, reverse=True)
+    gains = _rts_gains(xs, Ps, dts, process_noise=process_noise)
+    _, (x_s, P_s) = scan(_rts_step, (xs[-1], Ps[-1]), xs[:-1], Ps[:-1],
+                         *gains, reverse=True)
     return torch.cat([x_s, xs[-1:]]), torch.cat([P_s, Ps[-1:]])
 
 
@@ -370,7 +422,7 @@ def forward_filter(state: KalmanState, cand_pos_seq, cand_heading_seq,
 def smooth_sequence(state: KalmanState, cand_pos_seq, cand_heading_seq,
                     cand_index_seq, cand_valid_seq, dts, *,
                     process_noise: float = 1e-2, scan=tree.scan,
-                    forward=forward_filter, **kw):
+                    forward=forward_filter, backward=rts_smooth, **kw):
     """Forward filter (``advance_on_miss``, ``report="post"``, covariances
     kept) and the RTS backward pass over a recorded sequence.  Returns
     (TrackedObjects (T, O, ...) of smoothed positions and velocities, the
@@ -378,12 +430,13 @@ def smooth_sequence(state: KalmanState, cand_pos_seq, cand_heading_seq,
     initialised — gap frames carry interpolated states; xs_smooth
     (T, O, 9)).  ``scan``: the loop runner of both passes
     (``utils.tree.scan``'s signature); ``forward``: the forward pass,
-    ``forward_filter``'s signature, which gets ``scan``."""
+    ``forward_filter``'s signature, which gets ``scan``; ``backward``: the
+    backward pass, ``rts_smooth``'s signature, which gets it too."""
     _, ((tracked, xs, Ps), inited) = forward(
         state, cand_pos_seq, cand_heading_seq, cand_index_seq,
         cand_valid_seq, dts, process_noise=process_noise, scan=scan, **kw)
-    xs_s, _ = rts_smooth(xs, Ps, dts, process_noise=process_noise,
-                         scan=scan)
+    xs_s, _ = backward(xs, Ps, dts, process_noise=process_noise,
+                       scan=scan)
     smoothed = TrackedObjects(
         pos=torch.where(inited[..., None], xs_s[..., :3], 0.0),
         vel=torch.where(inited[..., None], xs_s[..., 3:6], 0.0),

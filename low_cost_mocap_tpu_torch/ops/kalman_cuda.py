@@ -11,12 +11,16 @@ bank.
 ``forward_scan`` runs the RTS smoother's forward filter (``update`` with
 ``advance_on_miss``, ``return_cov`` and ``report="post"``) over a whole
 recording in one launch of the kernel's other instantiation; its plain
-version is ``kalman.forward_filter``.
+version is ``kalman.forward_filter``.  ``backward_scan`` runs the
+smoother's backward pass in two launches of the file's other kernels: the
+gains of every step at once, then one sweep a recording (a warp an
+object); its plain version is ``kalman.rts_smooth``.
 
-Both take the plain chain for tensors on the CPU; for CUDA tensors they
-launch the kernel or raise.  They convert nothing: inputs of another dtype
-or layout are refused.  ``launches`` counts the launches of both
-instantiations, ``forward_launches`` those of the forward filter.
+Each takes the plain version for tensors on the CPU; for CUDA tensors it
+launches the kernel or raises.  They convert nothing: inputs of another
+dtype or layout are refused.  ``launches`` counts the launches of all the
+file's kernels, ``forward_launches`` those of the forward filter and
+``backward_launches`` those of the backward pass.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from low_cost_mocap_tpu_torch.utils import tree
 NAME = "kalman_bank"
 launches = 0
 forward_launches = 0
+backward_launches = 0
 
 _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
 # dtypes of cand_pos, heading, index, valid, dts, then the KalmanState leaves
@@ -50,6 +55,8 @@ def _lib():
         lib.lcm_kalman_bank.restype = I
         lib.lcm_kalman_forward.argtypes = [P] * 14 + [I, I, I, Fl, Fl, Fl, P]
         lib.lcm_kalman_forward.restype = I
+        lib.lcm_kalman_rts.argtypes = [P] * 5 + [I, I, Fl, P]
+        lib.lcm_kalman_rts.restype = I
         lib._lcm_typed = True
     return lib
 
@@ -178,3 +185,48 @@ def forward_scan(state: KalmanState, cand_pos_seq, cand_heading_seq,
                                      scan=scan, **kw)
     new, tracked, (xs, Ps, inited) = _launch(ins, forward=True, **kw)
     return new, ((tracked, xs, Ps), inited)
+
+
+def backward_scan(xs, Ps, dts, *, process_noise: float = 1e-2,
+                  scan=tree.scan):
+    """The RTS smoother's backward pass over T frames: a backward runner
+    for ``kalman.smooth_sequence``, ``kalman.rts_smooth``'s signature.
+
+    xs (T, O, 9), Ps (T, O, 9, 9) and dts (T,), contiguous float32 on one
+    device, checked on either.  Returns (xs_smooth, Ps_smooth), the last
+    frame the filtered one.  On the card two launches whatever T (none
+    for T < 2 or O = 0, where it returns its inputs as ``rts_smooth``
+    does), the results views of one allocation; on the CPU
+    ``kalman.rts_smooth``, whose sweep runs through ``scan``.
+    """
+    global launches, backward_launches
+    T = xs.shape[0]
+    O = xs.shape[1] if xs.dim() > 1 else 0
+    for t, shape in ((xs, (T, O, 9)), (Ps, (T, O, 9, 9)), (dts, (T,))):
+        if t.device != xs.device:
+            raise ValueError("backward_scan: all tensors must be on one "
+                             "device")
+        if t.shape != shape:
+            raise ValueError(f"backward_scan: expected shape {shape}, "
+                             f"got {tuple(t.shape)}")
+        if t.dtype != _F32 or not t.is_contiguous():
+            raise ValueError(f"backward_scan: expected a contiguous {_F32} "
+                             f"tensor, got {t.dtype}")
+    if not native.on_card(xs):
+        return kalman.rts_smooth(xs, Ps, dts, process_noise=process_noise,
+                                 scan=scan)
+    if T < 2 or O == 0:
+        return xs, Ps
+    lib = _lib()
+    dev = xs.device
+    out = torch.empty(T * O * 90, dtype=_F32, device=dev)
+    scratch = torch.empty((T - 1) * O * 171, dtype=_F32, device=dev)
+    with torch.cuda.device(dev):   # the C launcher uses the current device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        native.check(lib.lcm_kalman_rts(
+            xs.data_ptr(), Ps.data_ptr(), dts.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), T, O, process_noise, stream), NAME)
+    launches += 2
+    backward_launches += 2
+    xs_s, Ps_s = out.split([T * O * 9, T * O * 81])
+    return xs_s.view(T, O, 9), Ps_s.view(T, O, 9, 9)

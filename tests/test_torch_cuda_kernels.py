@@ -7,8 +7,10 @@ block holds, candidate counts that do not fill a warp or spill past one,
 ties across lanes, and NaN and infinite candidate distances; the bank's
 forward-filter instantiation (the RTS smoother's, one launch a recording)
 through misses before the first detection, short gaps and gaps past
-``gap_reset_s``, alone and inside ``process_recording``.  Beside the
-kernels, the two stages of the body rig that run on the card around them:
+``gap_reset_s``, and the smoother's backward kernels (two launches a
+recording) over its output, alone and inside ``process_recording``.
+Beside the kernels, the two stages of the body rig that run on the card
+around them:
 the body stage (6-DoF fits and the body tracker) and the blur + sharpen
 convolution, each held to the port on the CPU.
 
@@ -302,6 +304,28 @@ def test_forward_kernel_matches_plain_chain(dev, B, M, O):
         st = got[0]
 
 
+@pytest.mark.parametrize("O", [1, 2, 9])
+@pytest.mark.parametrize("T", [2, 3, 33, 1500])
+def test_backward_kernel_matches_plain_version(dev, T, O):
+    """The smoother's backward pass in two launches (O = 9: two blocks of
+    the sweep) against its plain version (``kalman.rts_smooth``) on the
+    card, over the forward kernel's filtered states of ``forward_case``:
+    both outputs bitwise, the last frame the filtered one."""
+    case = [torch.from_numpy(a).to(dev)
+            for a in forward_case(T + O, T, 32, O)]
+    _, ((_, xs, Ps), _) = kalman_cuda.forward_scan(
+        kalman.init_state(O, device=dev), *case)
+    n0, b0 = kalman_cuda.launches, kalman_cuda.backward_launches
+    got = kalman_cuda.backward_scan(xs, Ps, case[4])
+    assert (kalman_cuda.launches - n0, kalman_cuda.backward_launches - b0) \
+        == (2, 2)
+    want = kalman.rts_smooth(xs, Ps, case[4])
+    torch.cuda.synchronize()
+    _assert_same(got, want)
+    assert torch.equal(got[0][-1], xs[-1]) and torch.equal(got[1][-1],
+                                                           Ps[-1])
+
+
 def _two_drones(T, K):
     """Host blobs (T, 4, K, 2), valid (T, 4, K) of two drones circling on
     the 4-camera ring: drone 1 out of sight for 100 frame sets (past
@@ -334,9 +358,11 @@ def _two_drones(T, K):
 def test_process_recording_smooths_with_one_forward_launch(dev, chunk,
                                                            monkeypatch):
     """``process_recording(smooth=True)`` over 1,500 frame sets: one launch
-    of the forward filter whatever the chunk, no ``_forward_step`` step
-    replayed, and smoothed tracks bitwise those of the same call with the
-    plain forward chain (a ``ChunkedScan`` of graphs) on the card."""
+    of the forward filter and two of the backward pass whatever the chunk,
+    no ``_forward_step`` or ``_rts_step`` step replayed, and smoothed
+    tracks bitwise those of the same call with the plain backward pass,
+    then with both plain chains (``ChunkedScan``s of graphs), on the
+    card."""
     from low_cost_mocap_tpu_torch.config import EngineConfig
     from low_cost_mocap_tpu_torch.models import offline
     from low_cost_mocap_tpu_torch.ops import camera
@@ -364,15 +390,25 @@ def test_process_recording_smooths_with_one_forward_launch(dev, chunk,
         return offline.process_recording(rec, *cal, rig, cfg, dts=dts,
                                          chunk=chunk, smooth=True)
 
-    f0 = kalman_cuda.forward_launches
+    def launched():
+        return (kalman_cuda.forward_launches - f0,
+                kalman_cuda.backward_launches - b0)
+
+    f0, b0 = kalman_cuda.forward_launches, kalman_cuda.backward_launches
     got = call()
-    assert kalman_cuda.forward_launches - f0 == 1
-    assert "_forward_step" not in calls and "_rts_step" in calls
+    assert launched() == (1, 2)
+    assert "_forward_step" not in calls and "_rts_step" not in calls
+    monkeypatch.setattr(kalman_cuda, "backward_scan", kalman.rts_smooth)
+    plain_backward = call()
+    assert launched() == (2, 2)
+    assert calls.count("_rts_step") == -(-(T - 1) // chunk)
     monkeypatch.setattr(kalman_cuda, "forward_scan", kalman.forward_filter)
     want = call()
     torch.cuda.synchronize()
-    assert kalman_cuda.forward_launches - f0 == 1
+    assert launched() == (2, 2)
     assert calls.count("_forward_step") == -(-T // chunk)
+    _assert_same(tree.leaves(got.smoothed),
+                 tree.leaves(plain_backward.smoothed))
     _assert_same(tree.leaves(got.smoothed), tree.leaves(want.smoothed))
     # the long gap is bridged by the smoother
     assert not bool(got.tracked.valid[450].all())

@@ -5,9 +5,10 @@ and ``smooth_sequence``, on the scenes of ``tests/test_smoother.py``.
 
 Validity is exactly equal.  The forward chain is the JAX function run op
 by op (not jitted), so its floats agree within 1e-5; the smoothers add a
-9x9 inverse per step in both packages (LAPACK against LAPACK, summed in
-another order), so smoothed states agree within 1e-5 and covariances
-within 1e-4 absolute.
+9x9 solve per step (JAX's a LAPACK inverse, the port's written-out LU
+solves for ``rts_smooth`` and a LAPACK inverse for ``rts_smooth_assoc``,
+summed in another order), so smoothed states agree within 1e-5 and
+covariances within 1e-4 absolute.
 """
 
 import numpy as np
@@ -18,6 +19,7 @@ import jax.numpy as jnp
 
 from low_cost_mocap_tpu.ops import kalman as jk
 from low_cost_mocap_tpu_torch.ops import kalman
+from test_torch_kalman_forward import forward_case   # tests/ is on the path
 
 torch.set_num_threads(1)
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -94,6 +96,23 @@ def test_smoothers_match_jax(forward, fn):
     np.testing.assert_allclose(P_s.numpy(), np.asarray(jP_s), atol=1e-4)
     # the last frame is the filtered one
     np.testing.assert_array_equal(x_s[-1].numpy(), xs[-1].numpy())
+
+
+def test_rts_smooth_matches_jax_on_a_long_recording():
+    """The port's backward pass (the gains by LU solves, the sweep's sums
+    written out in index order) against JAX's einsums and inverse over
+    1,500 frames of ``forward_case`` (three objects, gaps past
+    ``gap_reset_s``, one 0.7 s interval), filtered by the port's forward
+    filter, with the smoothers' tolerances."""
+    case = [torch.from_numpy(a) for a in forward_case(3, 1500, 32, 3)]
+    _, ((_, xs, Ps), _) = kalman.forward_filter(
+        kalman.init_state(3, device="cpu"), *case)
+    x_s, P_s = kalman.rts_smooth(xs, Ps, case[4])
+    jx_s, jP_s = jk.rts_smooth(jnp.asarray(xs.numpy()),
+                               jnp.asarray(Ps.numpy()),
+                               jnp.asarray(case[4].numpy()))
+    np.testing.assert_allclose(x_s.numpy(), np.asarray(jx_s), **TOL)
+    np.testing.assert_allclose(P_s.numpy(), np.asarray(jP_s), atol=1e-4)
 
 
 def test_rts_assoc_matches_sequential(forward):
